@@ -1,0 +1,59 @@
+"""Build the port's containers from dicts of numpy arrays.
+
+The dicts are keyed by the field names the JAX package uses (they match
+the port's), so a caller can carry a blom_tpu Grid, State, CppmCoeffs,
+Forcing or DiffusionFields across with ``np.asarray`` on each field.
+Nothing here touches a JAX object."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.grid import TENSOR_FIELDS, Grid
+from .core.state import State
+from .dynamics.cppm import CppmCoeffs
+from .dynamics.diffusion_fields import DiffusionFields
+from .phys.forcing import Forcing
+
+
+def _t(a, dtype, device):
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _fields(cls, d, dtype, device):
+    return {f.name: _t(d[f.name], dtype, device)
+            for f in dataclasses.fields(cls)}
+
+
+def grid_from_numpy(d, *, periodic_i: bool, periodic_j: bool, kk: int,
+                    arctic: bool = False, dtype=torch.float64,
+                    device='cpu') -> Grid:
+    if arctic:
+        raise NotImplementedError('tripolar (arctic) grids are not ported')
+    return Grid(periodic_i=periodic_i, periodic_j=periodic_j, arctic=False,
+                kk=kk, **{k: _t(d[k], dtype, device) for k in TENSOR_FIELDS})
+
+
+def state_from_numpy(d, dtype=torch.float64, device='cpu') -> State:
+    return State(**_fields(State, d, dtype, device))
+
+
+def cppm_coeffs_from_numpy(d, dtype=torch.float64,
+                           device='cpu') -> CppmCoeffs:
+    return CppmCoeffs(**{k: _t(d[k], dtype, device)
+                         for k in CppmCoeffs._fields})
+
+
+def forcing_from_numpy(d, dtype=torch.float64, device='cpu') -> Forcing:
+    return Forcing(**_fields(Forcing, d, dtype, device))
+
+
+def diffusion_fields_from_numpy(d, dtype=torch.float64,
+                                device='cpu') -> DiffusionFields:
+    return DiffusionFields(**_fields(DiffusionFields, d, dtype, device))

@@ -1,0 +1,624 @@
+// CPPM transport sweep (full compatibility, non-oscillatory limiting).
+//
+// Replaces the Pallas TPU kernel blom_tpu/dynamics/cppm_pallas.py
+// (_sweep_chunk / _make_kernel, which runs cppm._cppm_sweep_body on VMEM
+// tiles).  Plain version: blom_tpu_torch/dynamics/cppm.py
+// _cppm_sweep_body; the arithmetic below is the same program, written
+// per cell.
+//
+// One launch sweeps every line of one axis: the i-sweep (ax=-1) walks
+// rows (k, j) with stride 1, the j-sweep (ax=-2) walks columns (k, i)
+// with stride I.  A block owns `nw` adjacent lines of one k-level (nw=1
+// for the i-sweep; in the j-sweep nw neighbouring i columns, so that the
+// loads of a warp stay contiguous in i) and loops over every tracer.
+//
+// What bounds it on an H100: device-memory traffic.  Per cell the sweep
+// reads hm, ca, du, dl (and div_corr on the second pass) plus nt tracers,
+// and writes hn, hf plus 2*nt tracer fields: 13-14 (k, j, i) fields at
+// nt=2 against roughly a thousand flops per cell, close to the card's
+// balance point for f32.  The design keeps every intermediate of the
+// stencil chain (thickness edges, limiter tests, compatible-edge
+// coefficients, parabola coefficients, edge fluxes) in shared memory,
+// one array of line length per stage, so each input is read from device
+// memory once and each output written once.  The +-2 reach of the
+// stencils needs no halo because a block holds the whole line.
+//
+// The tracer-matrix coefficients tmc0/tmcl/tmcr are read as the
+// precomputed (12, J, I) slabs of init_cppm_coeffs rather than rebuilt
+// from dx as the TPU kernel did: the TPU rebuilt them to save VMEM; here
+// the 36 planes (20 MB in f32 at 384x360) stay in the 50 MB L2 across the
+// k-levels, and only the rows of the cell's stencil class are read.  The
+// stencil class is a switch, so the LU solve of that class alone runs
+// (the plain version evaluates all classes and selects one).
+//
+// Shifts zero-fill at a closed end and wrap on a periodic axis, exactly
+// as the plain version's _sh.  Build with -fmad=false so that each
+// operation rounds as the plain version's separate tensor operations do.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum { S0000, S1111, S1110, S0111, S1100, S0110, S0011, S0100, S0010 };
+
+// shared-memory arrays, each of nw * N values
+enum {
+  A_HM, A_HEL, A_HER, A_TMP1, A_TMP2, A_TEV0, A_TEV1, A_TEV2, A_TEV3,
+  A_HF, A_TM, A_TPC0, A_TPC1, A_TPC2, A_HTF, N_ARR
+};
+
+template <typename T>
+struct Args {
+  const T *hm, *tm, *ca, *db, *du, *dl, *ai, *div;
+  const int32_t *stencil;
+  const T *hevc, *ssc, *scc, *d2m, *tmc0, *tmcl, *tmcr;
+  T *hn, *tmn, *hf, *htf;
+  int kk, J, I, nt, ax, periodic, nw, db3, ai3;
+};
+
+template <typename T>
+__device__ __forceinline__ T fab(T x) {
+  return x < T(0) ? -x : x;
+}
+
+template <typename T>
+__device__ __forceinline__ T fmn(T a, T b) {
+  return b < a ? b : a;
+}
+
+template <typename T>
+__device__ __forceinline__ T fmx(T a, T b) {
+  return b > a ? b : a;
+}
+
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {
+  return (T)((x > T(0)) - (x < T(0)));
+}
+
+template <typename T>
+__device__ __forceinline__ T safe(T x) {
+  return x == T(0) ? T(1) : x;
+}
+
+template <typename T>
+struct Line {
+  int N, nw, w, periodic;
+  long base2;     // 2-D offset of the line's first cell
+  long stride;    // 2-D offset between neighbouring cells of the line
+  T *sh;          // shared arrays
+
+  // neighbour position; false where a closed end is crossed (offsets
+  // are at most +-2, so one add or subtract wraps a periodic line)
+  __device__ __forceinline__ bool nb(int p, int off, int &q) const {
+    q = p + off;
+    if (q < 0 || q >= N) {
+      if (!periodic) return false;
+      q += q < 0 ? N : -N;
+    }
+    return true;
+  }
+  __device__ __forceinline__ T &s(int arr, int p) const {
+    return sh[(long)arr * N * nw + (long)p * nw + w];
+  }
+  // shared array `arr` at p+off, zero past a closed end
+  __device__ __forceinline__ T so(int arr, int p, int off) const {
+    int q;
+    return nb(p, off, q) ? s(arr, q) : T(0);
+  }
+  __device__ __forceinline__ long i2(int p) const {
+    return base2 + (long)p * stride;
+  }
+  // device field f (plane offset koff) at p+off, zero past a closed end
+  __device__ __forceinline__ T go(const T *f, long koff, int p,
+                                  int off) const {
+    int q;
+    return nb(p, off, q) ? f[koff + i2(q)] : T(0);
+  }
+};
+
+// Flux-integration weights of the upstream parabola
+// (flux_integration, mod_cppm.F90:1373-1468): p0, p1, p2 such that the
+// edge flux of a field with parabola coefficients (c0, c1, c2) of the
+// upstream cell is (p0*c0 + p1*c1 + p2*c2) * ca; upstream is cell p for
+// ca < 0 and cell p-1 otherwise.
+template <typename T>
+__device__ __forceinline__ void flux_weights(const Args<T> &a,
+                                             const Line<T> &L, long k3,
+                                             int p, T ca, T &p0, T &p1,
+                                             T &p2, bool &west) {
+  const T c1_2 = T(.5), c1_3 = T(1. / 3.), c1_4 = T(.25), c1_5 = T(1. / 5.);
+  const long ix = L.i2(p);
+  const T db = a.db[(a.db3 ? k3 : 0) + ix];
+  const long koff_ai = a.ai3 ? k3 : 0;
+  west = !(ca < T(0));
+  if (!west) {
+    const T hpc0 = L.s(A_HEL, p);
+    const T hm = L.s(A_HM, p), her = L.s(A_HER, p);
+    const T hpc1 = T(6) * hm - T(4) * hpc0 - T(2) * her;
+    const T hpc2 = T(3) * (hpc0 - T(2) * hm + her);
+    const T c = ca * a.ai[koff_ai + ix];
+    const T hb = fmx(db - a.du[k3 + ix], T(0));
+    const bool deep = a.dl[k3 + ix] > db;
+    const T hf_par = hpc0 - (c1_2 * hpc1 - c1_3 * hpc2 * c) * c;
+    p0 = deep ? hb : hf_par;
+    p1 = deep ? T(-.5) * hb * c
+              : -(c1_2 * hpc0 - (c1_3 * hpc1 - c1_4 * hpc2 * c) * c) * c;
+    p2 = deep ? c1_3 * hb * c * c
+              : (c1_3 * hpc0 - (c1_4 * hpc1 - c1_5 * hpc2 * c) * c) * c * c;
+  } else {
+    const T h0w = L.so(A_HEL, p, -1);
+    const T hmw = L.so(A_HM, p, -1), herw = L.so(A_HER, p, -1);
+    int q;
+    const bool ok = L.nb(p, -1, q);
+    const T h1w = ok ? T(6) * hmw - T(4) * h0w - T(2) * herw : T(0);
+    const T h2w = ok ? T(3) * (h0w - T(2) * hmw + herw) : T(0);
+    const T aiw = L.go(a.ai, koff_ai, p, -1);
+    const T duw = L.go(a.du, k3, p, -1);
+    const T dlw = L.go(a.dl, k3, p, -1);
+    const T cw = ca * aiw;
+    const T q1 = T(1) - c1_2 * cw;
+    const T q2 = T(1) - (T(1) - c1_3 * cw) * cw;
+    const T hb = fmx(db - duw, T(0));
+    const bool deep = dlw > db;
+    const T hf_par = h0w + q1 * h1w + q2 * h2w;
+    const T q3 = c1_4 * (T(1) + T(3) * (T(1) - cw) * q2);
+    const T q4 = c1_5 * (T(1) + T(4) * (T(1) - cw) * q3);
+    p0 = deep ? hb : hf_par;
+    p1 = deep ? q1 * hb : q1 * h0w + q2 * h1w + q3 * h2w;
+    p2 = deep ? q2 * hb : q2 * h0w + q3 * h1w + q4 * h2w;
+  }
+}
+
+// rows (a_r2, a_r3, a_r4) of the compatible-edge matrix for the cell at
+// p+off, coefficient block j0 of the cell p (mod_cppm.F90:505-560)
+template <typename T>
+__device__ __forceinline__ void mrow(const Args<T> &a, const Line<T> &L,
+                                     int p, int off, int j0, T &r2, T &r3,
+                                     T &r4) {
+  const T h = L.so(A_HM, p, off);
+  const T hl = L.so(A_HEL, p, off);
+  const T hr = L.so(A_HER, p, off);
+  const T hi = T(1) / h;
+  const long JI = (long)a.J * a.I;
+  const long ix = L.i2(p);
+  const T *c0 = a.tmc0 + ix, *cl = a.tmcl + ix, *cr = a.tmcr + ix;
+  r2 = c0[j0 * JI] + (cl[j0 * JI] * hl + cr[j0 * JI] * hr) * hi;
+  r3 = c0[(j0 + 1) * JI] + (cl[(j0 + 1) * JI] * hl
+                            + cr[(j0 + 1) * JI] * hr) * hi;
+  r4 = c0[(j0 + 2) * JI] + (cl[(j0 + 2) * JI] * hl
+                            + cr[(j0 + 2) * JI] * hr) * hi;
+}
+
+template <typename T>
+__device__ void tracer_edge_coeffs(const Args<T> &a, const Line<T> &L,
+                                   int p, int st, T tev[4]) {
+  T a12, a13, a14, b22, b23, b24, b32, b33, b34, b42, b43, b44;
+  tev[0] = tev[1] = tev[2] = tev[3] = T(0);
+  switch (st) {
+    case S1111: {
+      mrow(a, L, p, -2, 0, a12, a13, a14);
+      mrow(a, L, p, -1, 3, b22, b23, b24);
+      mrow(a, L, p, 0, 6, b32, b33, b34);
+      mrow(a, L, p, 1, 9, b42, b43, b44);
+      const T a22 = b22 - a12, a23 = b23 - a13, a24 = b24 - a14;
+      const T a32 = b32 - a12, a33 = b33 - a13, a34 = b34 - a14;
+      const T a42 = b42 - a12, a43 = b43 - a13, a44 = b44 - a14;
+      const T q = T(1) / safe(a22);
+      const T a23q = a23 * q;
+      const T c33 = a33 - a23q * a32;
+      const T c43 = a43 - a23q * a42;
+      const T a24q = a24 * q;
+      T c34 = a34 - a24q * a32;
+      T c44 = a44 - a24q * a42;
+      c34 = c34 / safe(c33);
+      c44 = c44 - c34 * c43;
+      T t2 = -a12;
+      T t3 = -a13 - a23q * t2;
+      T t4 = -a14 - a24q * t2 - c34 * t3;
+      t4 = t4 / safe(c44);
+      t3 = (t3 - c43 * t4) / safe(c33);
+      t2 = (t2 - a32 * t3 - a42 * t4) / safe(a22);
+      tev[0] = T(1) - t2 - t3 - t4;
+      tev[1] = t2;
+      tev[2] = t3;
+      tev[3] = t4;
+      break;
+    }
+    case S1110: {
+      mrow(a, L, p, -2, 0, a12, a13, a14);
+      mrow(a, L, p, -1, 3, b22, b23, b24);
+      mrow(a, L, p, 0, 6, b32, b33, b34);
+      const T d23 = (b23 - a13) / safe(b22 - a12);
+      const T d33 = (b33 - a13) - d23 * (b32 - a12);
+      T t2 = -a12;
+      const T t3 = (-a13 - d23 * t2) / safe(d33);
+      t2 = (t2 - (b32 - a12) * t3) / safe(b22 - a12);
+      tev[0] = T(1) - t2 - t3;
+      tev[1] = t2;
+      tev[2] = t3;
+      break;
+    }
+    case S0111: {
+      mrow(a, L, p, -1, 3, b22, b23, b24);
+      mrow(a, L, p, 0, 6, b32, b33, b34);
+      mrow(a, L, p, 1, 9, b42, b43, b44);
+      const T e32 = b32 - b22, e42 = b42 - b22;
+      const T e33 = (b33 - b23) / safe(e32);
+      const T e43 = (b43 - b23) - e33 * e42;
+      T t3 = -b22;
+      const T t4 = (-b23 - e33 * t3) / safe(e43);
+      t3 = (t3 - e42 * t4) / safe(e32);
+      tev[1] = T(1) - t3 - t4;
+      tev[2] = t3;
+      tev[3] = t4;
+      break;
+    }
+    case S1100: {
+      mrow(a, L, p, -2, 0, a12, a13, a14);
+      mrow(a, L, p, -1, 3, b22, b23, b24);
+      const T t2 = -a12 / safe(b22 - a12);
+      tev[0] = T(1) - t2;
+      tev[1] = t2;
+      break;
+    }
+    case S0110: {
+      mrow(a, L, p, -1, 3, b22, b23, b24);
+      mrow(a, L, p, 0, 6, b32, b33, b34);
+      const T t3 = -b22 / safe(b32 - b22);
+      tev[1] = T(1) - t3;
+      tev[2] = t3;
+      break;
+    }
+    case S0011: {
+      mrow(a, L, p, 0, 6, b32, b33, b34);
+      mrow(a, L, p, 1, 9, b42, b43, b44);
+      const T t4 = -b32 / safe(b42 - b32);
+      tev[2] = T(1) - t4;
+      tev[3] = t4;
+      break;
+    }
+    case S0100:
+      tev[1] = T(1);
+      break;
+    case S0010:
+      tev[2] = T(1);
+      break;
+    default:
+      break;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T minmod3(T sl, T sr, T sc) {
+  return sgn(sc) * fmn(fmn(fab(sl), fab(sr)), fab(sc));
+}
+
+// at most 64 registers, so four 256-thread blocks fit on an SM: the
+// phases wait on global loads, and two blocks (at the 90 registers ptxas
+// chooses unbounded) leave too few warps to hide that latency
+template <typename T>
+__global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int k = blockIdx.y;
+  const long JI = (long)a.J * a.I;
+  const long k3 = (long)k * JI;
+  const bool isweep = a.ax == -1;
+  const int N = isweep ? a.I : a.J;
+  const int nlines = isweep ? a.J : a.I;
+  const int ncell = N * a.nw;
+  const T dpeps = T(1e-12);
+
+  Line<T> L;
+  L.N = N;
+  L.nw = a.nw;
+  L.periodic = a.periodic;
+  L.sh = reinterpret_cast<T *>(smem_raw);
+  L.stride = isweep ? 1 : a.I;
+
+#define FOR_CELLS                                                   \
+  for (int c = threadIdx.x; c < ncell; c += blockDim.x) {           \
+    const int p = c / a.nw;                                         \
+    L.w = c - p * a.nw;                                             \
+    const int line = blockIdx.x * a.nw + L.w;                       \
+    if (line >= nlines) continue;                                   \
+    L.base2 = isweep ? (long)line * a.I : (long)line;               \
+    const long ix = L.i2(p);                                        \
+    (void)ix;
+
+#define END_CELLS }
+
+  // ---- 1: thickness, with the transverse divergence correction
+  FOR_CELLS
+    T hm = fmx(a.hm[k3 + ix], T(0)) + dpeps;
+    if (a.div) hm = hm / (T(1) - a.div[k3 + ix] * a.ai[(a.ai3 ? k3 : 0) + ix]);
+    L.s(A_HM, p) = hm;
+  END_CELLS
+  __syncthreads();
+
+  // ---- 2: 4th-order edge estimate (h_edges_nosc, mod_cppm.F90:361-380)
+  FOR_CELLS
+    const T *hv = a.hevc + ix;
+    L.s(A_TMP1, p) = hv[0] * L.so(A_HM, p, -2) + hv[JI] * L.so(A_HM, p, -1)
+                     + hv[2 * JI] * L.s(A_HM, p) + hv[3 * JI] * L.so(A_HM, p, 1);
+  END_CELLS
+  __syncthreads();
+
+  // ---- 3: second-derivative extrema detector
+  FOR_CELLS
+    const T hm = L.s(A_HM, p);
+    const T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
+    L.s(A_TMP2, p) = a.d2m[ix] * (hel - T(2) * hm + her);
+  END_CELLS
+  __syncthreads();
+
+  // ---- 4: non-oscillatory limiting + positivity of the thickness
+  // parabola (mod_cppm.F90:381-430)
+  FOR_CELLS
+    const T hm = L.s(A_HM, p);
+    T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
+    const T d2h = L.s(A_TMP2, p);
+    const bool need = (L.so(A_TMP2, p, -1) * d2h <= T(0))
+                      || (d2h * L.so(A_TMP2, p, 1) <= T(0));
+    if (need) {
+      const T hm_m = L.so(A_HM, p, -1), hm_p = L.so(A_HM, p, 1);
+      const T ssc = a.ssc[ix];
+      const T sl = ssc * (hm - hm_m), sr = ssc * (hm_p - hm);
+      if (sl * sr > T(0)) {
+        const T sc = minmod3(sl, sr, a.scc[ix] * (hm_p - hm_m));
+        const T hel2 = ((hm_m - hel) * (hm - hel) > T(0))
+            ? hm - sgn(sc) * fmn(T(.5) * fab(sc), fab(hel - hm)) : hel;
+        const T her2 = ((hm_p - her) * (hm - her) > T(0))
+            ? hm + sgn(sc) * fmn(T(.5) * fab(sc), fab(her - hm)) : her;
+        const T d = her2 - hel2;
+        const T q = d * (T(2) * hm - hel2 - her2);
+        const T r = d * d / T(3);
+        hel = q > r ? T(3) * hm - T(2) * her2 : hel2;
+        her = -r > q ? T(3) * hm - T(2) * hel2 : her2;
+      } else {
+        hel = hm;
+        her = hm;
+      }
+    }
+    hel = fmx(hel, dpeps);
+    her = fmx(her, dpeps);
+    const T sl = T(2) * (T(3) * hm - T(2) * hel - her);
+    const T a2 = T(3) * (hel - T(2) * hm + her);
+    const T sr = sl + T(2) * a2;
+    if (sl < T(0) && sr > T(0) && (a2 * hel - T(.25) * sl * sl < a2 * dpeps)) {
+      const T qq = T(3) * hm / (T(3) * sl * sr + T(4) * a2 * a2);
+      hel = sl * sl * qq;
+      her = sr * sr * qq;
+    }
+    L.s(A_HEL, p) = hel;
+    L.s(A_HER, p) = her;
+  END_CELLS
+  __syncthreads();
+
+  // ---- 5: compatible tracer-edge coefficients (per-cell LU solve of the
+  // cell's stencil class) and the thickness edge flux
+  FOR_CELLS
+    T tev[4];
+    tracer_edge_coeffs(a, L, p, a.stencil[ix], tev);
+    L.s(A_TEV0, p) = tev[0];
+    L.s(A_TEV1, p) = tev[1];
+    L.s(A_TEV2, p) = tev[2];
+    L.s(A_TEV3, p) = tev[3];
+    const T ca = a.ca[k3 + ix];
+    T p0, p1, p2;
+    bool west;
+    flux_weights(a, L, k3, p, ca, p0, p1, p2, west);
+    L.s(A_HF, p) = p0 * ca;
+  END_CELLS
+  __syncthreads();
+
+  // hn and hf (written once)
+  FOR_CELLS
+    const T ho = fmx(a.hm[k3 + ix], T(0)) + dpeps;
+    const T ai = a.ai[(a.ai3 ? k3 : 0) + ix];
+    const T hf = L.s(A_HF, p);
+    a.hn[k3 + ix] = ho - (L.so(A_HF, p, 1) - hf) * ai;
+    a.hf[k3 + ix] = hf;
+  END_CELLS
+
+  const long NK = (long)a.kk * JI;
+  for (int t = 0; t < a.nt; ++t) {
+    const long t3 = t * NK + k3;
+    // ---- 6a: tracer
+    FOR_CELLS
+      L.s(A_TM, p) = a.tm[t3 + ix];
+    END_CELLS
+    __syncthreads();
+
+    // ---- 6b: compatible tracer edge values
+    FOR_CELLS
+      L.s(A_TMP1, p) = L.s(A_TEV0, p) * L.so(A_TM, p, -2)
+                       + L.s(A_TEV1, p) * L.so(A_TM, p, -1)
+                       + L.s(A_TEV2, p) * L.s(A_TM, p)
+                       + L.s(A_TEV3, p) * L.so(A_TM, p, 1);
+    END_CELLS
+    __syncthreads();
+
+    // ---- 6c: extrema detector of the tracer parabola
+    FOR_CELLS
+      const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
+      const T qh = T(1) / (T(12) * hm - hel - her);
+      const T hf1m = T(60) * hm * qh;
+      const T hf2m = -hf1m;
+      const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
+      const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
+      L.s(A_TMP2, p) = a.d2m[ix] * (hf2m * L.s(A_TM, p) + hf2l * L.s(A_TMP1, p)
+                                    + hf2r * L.so(A_TMP1, p, 1));
+    END_CELLS
+    __syncthreads();
+
+    // ---- 6d: limiting, positivity and parabola coefficients
+    // (parabola_coeffs_fc_nosc, mod_cppm.F90:731-818)
+    FOR_CELLS
+      const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
+      const T qh = T(1) / (T(12) * hm - hel - her);
+      const T hf1m = T(60) * hm * qh;
+      const T hf1l = -(T(42) * hm + T(4) * hel - T(6) * her) * qh;
+      const T hf1r = -(T(18) * hm - T(4) * hel + T(6) * her) * qh;
+      const T hf2m = -hf1m;
+      const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
+      const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
+      const T tm = L.s(A_TM, p);
+      T tel = L.s(A_TMP1, p), ter = L.so(A_TMP1, p, 1);
+      const T d2t = L.s(A_TMP2, p);
+      const bool need = (L.so(A_TMP2, p, -1) * d2t <= T(0))
+                        || (d2t * L.so(A_TMP2, p, 1) <= T(0));
+      if (need) {
+        const T tm_m = L.so(A_TM, p, -1), tm_p = L.so(A_TM, p, 1);
+        const T ssc = a.ssc[ix];
+        const T sl = ssc * (tm - tm_m), sr = ssc * (tm_p - tm);
+        if (sl * sr > T(0)) {
+          const T sc = minmod3(sl, sr, a.scc[ix] * (tm_p - tm_m));
+          const T tel2 = ((tm_m - tel) * (tm - tel) > T(0))
+              ? tm - sgn(sc) * fmn(T(.5) * fab(sc), fab(tel - tm)) : tel;
+          const T ter2 = ((tm_p - ter) * (tm - ter) > T(0))
+              ? tm + sgn(sc) * fmn(T(.5) * fab(sc), fab(ter - tm)) : ter;
+          const T sl2 = hf1m * tm + hf1l * tel2 + hf1r * ter2;
+          const T a2 = hf2m * tm + hf2l * tel2 + hf2r * ter2;
+          const T sr2 = sl2 + T(2) * a2;
+          const bool fix = sl2 * sr2 < T(0);
+          const bool left_fix = (ter2 - tel2) * a2 < T(0);
+          const T tel3 = (fix && left_fix)
+              ? -((hf1m + T(2) * hf2m) * tm + (hf1r + T(2) * hf2r) * ter2)
+                    / (hf1l + T(2) * hf2l)
+              : tel2;
+          const T ter3 = (fix && !left_fix)
+              ? -(hf1m * tm + hf1l * tel3) / hf1r : ter2;
+          tel = tel3;
+          ter = ter3;
+        } else {
+          tel = tm;
+          ter = tm;
+        }
+      }
+      if (t >= 1) {
+        // positivity for salinity and passive tracers
+        T tel_p = fmx(tel, T(0)), ter_p = fmx(ter, T(0));
+        const T sl3 = hf1m * tm + hf1l * tel_p + hf1r * ter_p;
+        const T a23 = hf2m * tm + hf2l * tel_p + hf2r * ter_p;
+        const T sr3 = sl3 + T(2) * a23;
+        if (sl3 < T(0) && sr3 > T(0)
+            && (a23 * tel_p - T(.25) * sl3 * sl3 < T(0))) {
+          const T qq = T(3) * tm / (T(3) * sl3 * sr3 + T(4) * a23 * a23);
+          tel_p = sl3 * sl3 * qq;
+          ter_p = sr3 * sr3 * qq;
+        }
+        tel = tel_p;
+        ter = ter_p;
+      }
+      L.s(A_TPC0, p) = tel;
+      L.s(A_TPC1, p) = hf1m * tm + hf1l * tel + hf1r * ter;
+      L.s(A_TPC2, p) = hf2m * tm + hf2l * tel + hf2r * ter;
+    END_CELLS
+    __syncthreads();
+
+    // ---- 6e: tracer edge flux from the upstream parabola
+    FOR_CELLS
+      const T ca = a.ca[k3 + ix];
+      T p0, p1, p2;
+      bool west;
+      flux_weights(a, L, k3, p, ca, p0, p1, p2, west);
+      const int off = west ? -1 : 0;
+      L.s(A_HTF, p) = (p0 * L.so(A_TPC0, p, off) + p1 * L.so(A_TPC1, p, off)
+                       + p2 * L.so(A_TPC2, p, off)) * ca;
+    END_CELLS
+    __syncthreads();
+
+    // ---- 6f: cell update
+    FOR_CELLS
+      const T ho = fmx(a.hm[k3 + ix], T(0)) + dpeps;
+      const T ai = a.ai[(a.ai3 ? k3 : 0) + ix];
+      const T hf = L.s(A_HF, p);
+      const T hn = ho - (L.so(A_HF, p, 1) - hf) * ai;
+      const T htf = L.s(A_HTF, p);
+      const T hni = T(1) / hn;
+      a.tmn[t3 + ix] = (ho * L.s(A_TM, p) - (L.so(A_HTF, p, 1) - htf) * ai) * hni;
+      a.htf[t3 + ix] = htf;
+    END_CELLS
+    __syncthreads();
+  }
+#undef FOR_CELLS
+#undef END_CELLS
+}
+
+template <typename T>
+int launch(void *const *ptrs, const int *iargs, void *stream) {
+  Args<T> a;
+  a.hm = (const T *)ptrs[0];
+  a.tm = (const T *)ptrs[1];
+  a.ca = (const T *)ptrs[2];
+  a.db = (const T *)ptrs[3];
+  a.du = (const T *)ptrs[4];
+  a.dl = (const T *)ptrs[5];
+  a.ai = (const T *)ptrs[6];
+  a.div = (const T *)ptrs[7];
+  a.stencil = (const int32_t *)ptrs[8];
+  a.hevc = (const T *)ptrs[9];
+  a.ssc = (const T *)ptrs[10];
+  a.scc = (const T *)ptrs[11];
+  a.d2m = (const T *)ptrs[12];
+  a.tmc0 = (const T *)ptrs[13];
+  a.tmcl = (const T *)ptrs[14];
+  a.tmcr = (const T *)ptrs[15];
+  a.hn = (T *)ptrs[16];
+  a.tmn = (T *)ptrs[17];
+  a.hf = (T *)ptrs[18];
+  a.htf = (T *)ptrs[19];
+  a.kk = iargs[0];
+  a.J = iargs[1];
+  a.I = iargs[2];
+  a.nt = iargs[3];
+  a.ax = iargs[4];
+  a.periodic = iargs[5];
+  a.nw = iargs[6];
+  a.db3 = iargs[7];
+  a.ai3 = iargs[8];
+  const int threads = iargs[9];
+  const int N = a.ax == -1 ? a.I : a.J;
+  const int nlines = a.ax == -1 ? a.J : a.I;
+  // take fewer lines per block than asked when they do not fit in the
+  // device's shared memory (the j-sweep at large J, in f64 first)
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(
+      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t line_bytes = (size_t)N_ARR * N * sizeof(T);
+  while (a.nw > 1 && line_bytes * a.nw > (size_t)smem_max) a.nw /= 2;
+  if (line_bytes > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  const size_t smem = line_bytes * a.nw;
+  err = cudaFuncSetAttribute(
+      cppm_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nlines + a.nw - 1) / a.nw, a.kk);
+  cppm_sweep_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// ptrs: hm, tm, ca, db, du, dl, ai, div (or null), stencil, hevc, ssc,
+// scc, d2m, tmc0, tmcl, tmcr, hn, tmn, hf, htf.
+// iargs: kk, J, I, nt, ax, periodic, nw (most lines per block), db3, ai3,
+// threads.  Returns the cudaError_t of the launch; cudaErrorInvalidValue
+// when one line does not fit in shared memory (N above 3874 in f32, 1937
+// in f64, at the H100's 227 KB per block).
+int cppm_sweep_f32(void *const *ptrs, const int *iargs, void *stream) {
+  return launch<float>(ptrs, iargs, stream);
+}
+
+int cppm_sweep_f64(void *const *ptrs, const int *iargs, void *stream) {
+  return launch<double>(ptrs, iargs, stream);
+}
+
+}

@@ -1,0 +1,118 @@
+"""Standalone model driver.
+
+Counterpart of `build_fuk95` and `run` in
+`blom_tpu/drivers/standalone.py` (BLOM's drivers/nocoupler/blom.F:20-67):
+build the fuk95 configuration, initialize it and integrate the step
+loop.  Runs on the card unless the caller passes another device."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core import eos, init, modeltime
+from ..core.grid import Grid
+from ..core.state import State
+from ..dynamics import cppm as cppm_mod
+from ..dynamics.barotp import BarotpParams
+from ..dynamics.diffusion_fields import DiffusionFields, zero_diffusion_fields
+from ..dynamics.momtum import MomtumParams
+from ..dynamics.step import StepParams, blom_step, two_step
+from ..phys.forcing import Forcing, zero_forcing
+
+
+@dataclasses.dataclass
+class Model:
+    grid: Grid
+    e: eos.EosParams
+    par: StepParams
+    coeffs_i: cppm_mod.CppmCoeffs
+    coeffs_j: cppm_mod.CppmCoeffs
+    clock: modeltime.ModelTime
+    state: State
+    forcing: Forcing
+    dfl: DiffusionFields
+
+
+def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
+                device=None) -> Model:
+    """Assemble the fuk95 experiment (tests/fuk95/limits deck values).
+
+    Matches blom_tpu's build_fuk95 field for field, except that the
+    phases not ported yet are off: ``par.ale``, ``par.vmix`` and
+    ``par.difest`` are None (no ALE regrid/remap, no vertical mixing,
+    no lateral diffusivities).  This is the adiabatic dynamical core.
+    `device` defaults to CUDA and raises when CUDA is missing."""
+    from ..configs import fuk95 as cfg
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'CUDA is not available; pass device="cpu" to run the '
+                'plain PyTorch path on the CPU')
+        device = 'cuda'
+    itdm = itdm or cfg.ITDM
+    jtdm = jtdm or cfg.JTDM
+    kdm = kdm or cfg.KDM
+
+    baclin, batrop = 180., 6.
+    clock = modeltime.init_timevars('fuk95', baclin, batrop,
+                                    20000101, 20000101)
+    grid = cfg.make_grid(baclin, itdm, jtdm, kdm, dtype=dtype, device=device)
+    e = eos.init_eos(pref=0., expcnf='fuk95')
+
+    z, sigma, saln, sigmar, phi = cfg.initial_profiles(itdm, jtdm, kdm)
+    # temperature from the analytic profile, in f64 on the host
+    temp = eos.tofsig(e, torch.from_numpy(sigma),
+                      torch.from_numpy(saln)).numpy()
+    state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
+                            sigmar=sigmar, dtype=dtype, ntr=0)
+
+    par = StepParams(
+        baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
+        momtum=MomtumParams(vsc2hi=.2, vsc2lo=.2, cbar=.05, cb=.002,
+                            mommth='enscon'),
+        barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
+        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
+        ale=None, vmix=None, difest=None, itriag=-1, itrbgc=-1)
+
+    ip_np = grid.ip.cpu().double().numpy()
+    coeffs_i = cppm_mod.init_cppm_coeffs(
+        ip_np, grid.scpx.cpu().double().numpy(), axis=-1,
+        periodic=grid.periodic_i, dtype=dtype, device=device)
+    coeffs_j = cppm_mod.init_cppm_coeffs(
+        ip_np, grid.scpy.cpu().double().numpy(), axis=-2,
+        periodic=grid.periodic_j, dtype=dtype, device=device)
+
+    forcing = zero_forcing(kdm, grid.shape, dtype, device)
+    dfl = zero_diffusion_fields(kdm, grid.shape, dtype, device)
+    return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
+                 coeffs_j=coeffs_j, clock=clock, state=state,
+                 forcing=forcing, dfl=dfl)
+
+
+def run(model: Model, nsteps: int):
+    """Integrate `nsteps` baroclinic steps from the model's clock and
+    state.  The first steps from initial conditions are forward
+    (delt1 = baclin), later ones leap-frog (delt1 = 2*baclin).
+
+    Steps go in pairs of both parities; an odd count ends with one step
+    at the pair's first parity.  `model.state` is left unchanged.
+    Returns (state, clock)."""
+    s = model.state.clone()
+    dfl = model.dfl
+    delt1s = []
+    c = model.clock
+    for _ in range(nsteps):
+        delt1s.append(c.delt1)
+        c = c.step()
+    args = (model.grid, model.e, model.par, model.coeffs_i, model.coeffs_j)
+    n_even = (nsteps // 2) * 2
+    for i in range(0, n_even, 2):
+        s, dfl = two_step(*args, s, model.forcing, dfl,
+                          delt1s[i], delt1s[i + 1])
+    if nsteps % 2:
+        s, dfl = blom_step(*args, s, model.forcing, dfl, 0, 1, delt1s[-1])
+    model.dfl = dfl
+    return s, c

@@ -1,0 +1,92 @@
+"""Layer thickness and tracer advection, CPPM branch.
+
+Counterpart of the CPPM branch of `blom_tpu/dynamics/advect.py`
+(BLOM's mod_advect.F90:59-189): CFL-clamped flux areas cau/cav from the
+mid-level baroclinic velocity, the predicted barotropic transport and
+the eddy/submesoscale transports (mod_advect.F90:71-94), then the
+Strang-split CPPM sweeps (mod_cppm.F90:2748-2834)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.constants import onemm, epsilpl
+from ..core.grid import Grid
+from ..core.state import State, cumulative_p
+from .cppm import CppmCoeffs, cppm_sweep, dpeps
+from .diffusion_fields import DiffusionFields
+
+
+def advect(grid: Grid, s: State, dfl: DiffusionFields,
+           coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs,
+           m: int, n: int, delt1, dlt,
+           advmth: str = 'cppm',
+           cppm_compatibility: str = 'full',
+           cppm_limiting: str = 'non_oscillatory') -> State:
+    """Advect dp, temp, saln and passive tracers of level n; accumulate
+    the mass and tracer fluxes of level m.  Updates `s` in place."""
+    if advmth != 'cppm':
+        raise NotImplementedError(f'advmth={advmth!r} is not ported')
+    iu, iv, ip = grid.iu, grid.iv, grid.ip
+
+    # ---- flux areas (mod_advect.F90:71-94)
+    dtdl_u = delt1 * grid.scuy
+    ca_u = (s.u[m] * dtdl_u
+            + s.ubflxs_p[m] * dlt / torch.clamp(s.pbu[m], min=epsilpl)
+            + (dfl.umfltd[m] + dfl.umflsm[m])
+            / torch.clamp(s.dpu[n], min=onemm))
+    cau = torch.clamp(ca_u, -grid.umax * dtdl_u, grid.umax * dtdl_u) * iu
+
+    dtdl_v = delt1 * grid.scvx
+    ca_v = (s.v[m] * dtdl_v
+            + s.vbflxs_p[m] * dlt / torch.clamp(s.pbv[m], min=epsilpl)
+            + (dfl.vmfltd[m] + dfl.vmflsm[m])
+            / torch.clamp(s.dpv[n], min=onemm))
+    cav = torch.clamp(ca_v, -grid.vmax * dtdl_v, grid.vmax * dtdl_v) * iv
+    s.cau, s.cav = cau, cav
+
+    # ---- CPPM Strang-split sweeps: i first on odd steps; with
+    # m = (nstep+1) % 2, odd nstep <=> m == 0
+    i_first = (m == 0)
+
+    # interface pressures of the pre-advection state (for the
+    # bottom-limited reconstruction of flux_integration)
+    p = cumulative_p(s.dp[n]) * ip
+    tm = torch.cat([s.temp[n][None], s.saln[n][None], s.trc[n]], 0)
+    h = s.dp[n]
+
+    def sweep_i(h, tm, second):
+        div = (grid.jp1(cav, 'v', True) - cav) if second else None
+        return cppm_sweep(h, tm, cau, s.pbu[n], p[:-1], p[1:], grid.scp2i,
+                          coeffs_i, grid.periodic_i, div_corr=div,
+                          compatibility=cppm_compatibility,
+                          limiting=cppm_limiting, ax=-1)
+
+    def sweep_j(h, tm, second):
+        div = (grid.ip1(cau) - cau) if second else None
+        return cppm_sweep(h, tm, cav, s.pbv[n], p[:-1], p[1:], grid.scp2i,
+                          coeffs_j, grid.periodic_j, div_corr=div,
+                          compatibility=cppm_compatibility,
+                          limiting=cppm_limiting, ax=-2)
+
+    if i_first:
+        h1, tm1, hfu, htfu = sweep_i(h, tm, False)
+        h1 = torch.clamp(h1 - dpeps, min=0.) * ip
+        h2, tm2, hfv, htfv = sweep_j(h1, tm1, True)
+    else:
+        h1, tm1, hfv, htfv = sweep_j(h, tm, False)
+        h1 = torch.clamp(h1 - dpeps, min=0.) * ip
+        h2, tm2, hfu, htfu = sweep_i(h1, tm1, True)
+    h2 = torch.clamp(h2 - dpeps, min=0.) * ip
+
+    s.trc[n] = tm2[2:] * ip
+    s.dp[n] = h2
+    s.temp[n] = tm2[0] * ip
+    s.saln[n] = tm2[1] * ip
+    s.uflx[m] += hfu * iu
+    s.vflx[m] += hfv * iv
+    s.utflx[m] += htfu[0] * iu
+    s.usflx[m] += htfu[1] * iu
+    s.vtflx[m] += htfv[0] * iv
+    s.vsflx[m] += htfv[1] * iv
+    return s

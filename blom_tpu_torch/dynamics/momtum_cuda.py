@@ -1,0 +1,89 @@
+"""Wrapper of the CUDA momentum stencil kernels (csrc/momtum_uv.cu).
+
+Replaces blom_tpu's Pallas kernel `dynamics/momtum_pallas.py`.  One call
+launches the three stages of the stencil core on the current stream, in
+order; `launches` counts stage launches, three per call.  The wrapper
+checks devices, dtypes, shapes and
+contiguity and allocates the outputs and the staging scratch.  It takes
+CUDA tensors only; `momtum.momtum_uv` sends CPU tensors to the plain
+version."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .momtum import Momtum2DIn, MomtumKIn, MomtumParams
+
+launches = 0
+
+# grid planes the kernel reads, in the order of its G_* enum
+METRICS = ('ip', 'iu', 'iv', 'iq', 'scux', 'scuy', 'scvx', 'scvy', 'scuxi',
+           'scvyi', 'scu2', 'scv2', 'scp2i', 'scq2i', 'scpx', 'scpy', 'scqx',
+           'scqy', 'difmxp', 'difmxq', 'corioq')
+_THREADS = 128
+_DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
+
+
+def _lib():
+    from ..cuda_build import library
+    return library('momtum_uv')
+
+
+def _fn(dtype):
+    fn = getattr(_lib(), f'momtum_uv_{_DTYPES[dtype]}')
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
+                   tsfac, delt1):
+    """Same contract as momtum._uv_body, on the card."""
+    global launches
+    if par.mommth != 'enscon':
+        raise NotImplementedError(
+            f'mommth={par.mommth!r} has no CUDA kernel (only enscon)')
+    if grid.arctic:
+        raise NotImplementedError('tripolar grids have no CUDA kernel')
+    dtype = f.u_m.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f'momtum_uv_cuda: unsupported dtype {dtype}')
+    kk, J, I = f.u_m.shape
+    dev = f.u_m.device
+    planes = [getattr(grid, name) for name in METRICS]
+    checks = ([(n, t, (kk, J, I)) for n, t in zip(MomtumKIn._fields, f)]
+              + [(n, t, (J, I)) for n, t in zip(Momtum2DIn._fields, d2)]
+              + [(n, t, (J, I)) for n, t in zip(METRICS, planes)])
+    for name, t, shape in checks:
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}')
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f'{name} is not on {dev}')
+        if t.dtype != dtype:
+            raise TypeError(f'{name} is {t.dtype}, expected {dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} is not contiguous')
+
+    # the fields the kernel stages between its launches
+    scratch = torch.empty((_lib().momtum_scratch_fields(), kk, J, I),
+                          dtype=dtype, device=dev)
+    u_new = torch.empty_like(f.u_m)
+    v_new = torch.empty_like(f.v_m)
+    ptrs = [*f, *d2, *planes, scratch, u_new, v_new]
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    dargs = (ctypes.c_double * 10)(
+        tsfac, delt1, par.mdv2hi, par.mdv2lo, par.mdv4hi, par.mdv4lo,
+        par.vsc2hi, par.vsc2lo, par.vsc4hi, par.vsc4lo)
+    iargs = (ctypes.c_int * 6)(kk, J, I, int(grid.periodic_i),
+                               int(grid.periodic_j), _THREADS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _fn(dtype)
+    from ..cuda_build import check
+    with torch.cuda.device(dev):
+        for stage in (1, 2, 3):
+            check(fn(ptr_arr, dargs, iargs, stage, stream),
+                  f'momtum_uv stage {stage}')
+            launches += 1
+    return u_new, v_new

@@ -1,0 +1,233 @@
+"""The port's fuk95 adiabatic dynamical core against blom_tpu's, on CPU.
+
+blom_tpu's fuk95 model at 24x8x8 in f64, with the phases the port does
+not have yet turned off (``par._replace(ale=None, vmix=None,
+difest=None)``), is the reference.
+
+- The port's build_fuk95 gives the same grid, CPPM coefficients and
+  initial state.
+- Phase by phase, from the same input state, the port reproduces each
+  phase of blom_tpu's step to rounding (both parities).  blom_tpu runs
+  the barotropic substeps as a compiled lax.scan in which XLA contracts
+  multiply-adds, and the barotropic pressure-gradient terms cancel by
+  about six orders of magnitude, so barotp alone agrees to ~1e-9
+  relative rather than to the last bit.
+- Over 4 steps of the jitted blom_tpu driver those roundoff differences
+  grow through the CPPM limiters and the barotropic solve: the
+  prognostic fields agree to 1e-6 relative (measured 3e-7 for v), every
+  State field to 1e-5 (measured 3e-6 for the pressure-gradient fields,
+  which are differences of a ~2e3 m2 s-2 potential).
+- The port's own physical invariants: finite fields, mass conserved to
+  roundoff, uniform salinity kept.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from blom_tpu.drivers import standalone as jst
+from blom_tpu.dynamics import advect as ja
+from blom_tpu.dynamics import barotp as jb
+from blom_tpu.dynamics import momtum as jmo
+from blom_tpu.dynamics import pbcor as jp
+from blom_tpu.dynamics import pgforc as jg
+from blom_tpu.dynamics import step as jstep
+from blom_tpu.dynamics import tmsmt as jt
+from blom_tpu_torch import convert
+from blom_tpu_torch.core.grid import TENSOR_FIELDS
+from blom_tpu_torch.drivers import standalone as tst
+from blom_tpu_torch.dynamics import advect as ta
+from blom_tpu_torch.dynamics import barotp as tb
+from blom_tpu_torch.dynamics import momtum as tmo
+from blom_tpu_torch.dynamics import pbcor as tp
+from blom_tpu_torch.dynamics import pgforc as tg
+from blom_tpu_torch.dynamics import step as tstep
+from blom_tpu_torch.dynamics import tmsmt as tt
+
+SIZE = dict(itdm=24, jtdm=8, kdm=8)
+PROGNOSTIC = ('u', 'v', 'dp', 'temp', 'saln', 'pb')
+PHASES = ('tmsmt1', 'advect', 'pbcor1', 'pgforc', 'momtum', 'barotp',
+          'pbcor2', 'tmsmt2')
+
+
+def _np_fields(obj):
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if not isinstance(getattr(obj, f.name), (bool, int))}
+
+
+def _rel_errors(ref_state, state):
+    """{field: max|ref - port| / max|ref|} over the non-empty fields."""
+    out = {}
+    for name, a in _np_fields(ref_state).items():
+        if a.size:
+            b = getattr(state, name).numpy()
+            out[name] = float(np.abs(a - b).max()
+                              / max(np.abs(a).max(), 1e-300))
+    return out
+
+
+@pytest.fixture(scope='module')
+def models():
+    torch.set_num_threads(1)
+    jm = jst.build_fuk95(**SIZE)
+    jm.par = jm.par._replace(ale=None, vmix=None, difest=None)
+    tm = tst.build_fuk95(device='cpu', **SIZE)
+    return jm, tm
+
+
+@pytest.fixture(scope='module')
+def phase_snapshots(models):
+    """blom_tpu's state before and after each phase of the first two
+    steps, run eagerly phase by phase."""
+    jm, _ = models
+    g, e, par = jm.grid, jm.e, jm.par
+    s = jm.state
+    snaps = {}
+    for step, (m, n) in enumerate(((0, 1), (1, 0))):
+        d1 = jm.clock.delt1
+        s = jstep.init_fluxes(s, m)
+
+        def run(name, fn, uv=None):
+            nonlocal s
+            before = s
+            s = fn(s)
+            snaps[(step, name)] = (m, n, d1, before, s, uv)
+
+        run('tmsmt1', lambda s: jt.tmsmt1(g, s, n))
+        run('advect', lambda s: ja.advect(g, s, jm.dfl, jm.coeffs_i,
+                                          jm.coeffs_j, m, n, d1, par.dlt))
+        run('pbcor1', lambda s: jp.pbcor1(g, s, m, n, par.dlt))
+        run('pgforc', lambda s: jg.pgforc(g, e, s, m, n))
+        before = s
+        s, ju, jv = jmo.momtum(g, s, jm.forcing, par.momtum,
+                               jm.dfl.difwgt, m, n, d1, par.dlt)
+        uv = (np.asarray(ju), np.asarray(jv))
+        snaps[(step, 'momtum')] = (m, n, d1, before, s, uv)
+        run('barotp', lambda s: jb.barotp(g, s, ju, jv, m, n, par.lstep,
+                                          par.dlt, par.barotp), uv)
+        run('pbcor2', lambda s: jp.pbcor2(g, e, s, m, n, par.dlt))
+        run('tmsmt2', lambda s: jt.tmsmt2(g, s, m, n))
+    return snaps
+
+
+def _port_phase(tm, name, m, n, d1, s, uv):
+    g, e, par = tm.grid, tm.e, tm.par
+    if name == 'tmsmt1':
+        return tt.tmsmt1(g, s, n)
+    if name == 'advect':
+        return ta.advect(g, s, tm.dfl, tm.coeffs_i, tm.coeffs_j, m, n, d1,
+                         par.dlt)
+    if name == 'pbcor1':
+        return tp.pbcor1(g, s, m, n, par.dlt)
+    if name == 'pgforc':
+        return tg.pgforc(g, e, s, m, n)
+    if name == 'momtum':
+        s, u, v = tmo.momtum(g, s, tm.forcing, par.momtum, tm.dfl.difwgt,
+                             m, n, d1, par.dlt)
+        # the depth-mean tendency is a column sum of terms that cancel by
+        # ~1e6, taken in another order than jnp.sum; from rest it is
+        # pure rounding, so the floor is 1e-16 m s-1 per step
+        for port, ref in ((u, uv[0]), (v, uv[1])):
+            assert (np.abs(port.numpy() - ref).max()
+                    <= 1e-9 * np.abs(ref).max() + 1e-16 / d1)
+        return s
+    if name == 'barotp':
+        return tb.barotp(g, s, torch.tensor(uv[0]), torch.tensor(uv[1]),
+                         m, n, par.lstep, par.dlt, par.barotp)
+    if name == 'pbcor2':
+        return tp.pbcor2(g, e, s, m, n, par.dlt)
+    return tt.tmsmt2(g, s, m, n)
+
+
+def test_build_matches_blom_tpu(models):
+    """Same grid and CPPM coefficients; the same initial state to
+    rounding (getpl's Newton loop and the column scans run compiled in
+    blom_tpu; PGF fields are differences of a ~2e3 m2 s-2 potential, so
+    their absolute error sits near 1e-12)."""
+    jm, tm = models
+    for name in TENSOR_FIELDS:
+        np.testing.assert_array_equal(getattr(tm.grid, name).numpy(),
+                                      np.asarray(getattr(jm.grid, name)),
+                                      err_msg=name)
+    for co_j, co_t in ((jm.coeffs_i, tm.coeffs_i),
+                       (jm.coeffs_j, tm.coeffs_j)):
+        for name in co_t._fields:
+            np.testing.assert_array_equal(getattr(co_t, name).numpy(),
+                                          np.asarray(getattr(co_j, name)),
+                                          err_msg=name)
+    for name, a in _np_fields(jm.state).items():
+        b = getattr(tm.state, name).numpy()
+        assert b.shape == a.shape, name
+        np.testing.assert_allclose(
+            b, a, rtol=0, atol=1e-10 * np.abs(a).max(initial=0.) + 1e-11,
+            err_msg=name)
+    assert tm.par.lstep == jm.par.lstep and tm.par.dlt == jm.par.dlt
+    assert tm.par.momtum._asdict() == jm.par.momtum._asdict()
+    assert tm.par.barotp._asdict() == jm.par.barotp._asdict()
+    assert (tm.par.ale, tm.par.vmix, tm.par.difest) == (None, None, None)
+
+
+@pytest.mark.parametrize('phase', PHASES)
+@pytest.mark.parametrize('step', [0, 1])
+def test_phase_matches_blom_tpu(models, phase_snapshots, step, phase):
+    _, tm = models
+    m, n, d1, before, after, uv = phase_snapshots[(step, phase)]
+    s = convert.state_from_numpy(_np_fields(before))
+    s = _port_phase(tm, phase, m, n, d1, s, uv)
+    tol = 1e-8 if phase == 'barotp' else 1e-12
+    errs = _rel_errors(after, s)
+    bad = {k: v for k, v in errs.items() if v > tol}
+    assert not bad, bad
+
+
+def test_four_steps_match_blom_tpu(models):
+    """The forward first step and both parities, through both drivers."""
+    jm, tm = models
+    js, jclock = jst.run(jm, 4)
+    model = dataclasses.replace(
+        tm, state=convert.state_from_numpy(_np_fields(jm.state)))
+    ts, tclock = tst.run(model, 4)
+    assert tclock.nstep == jclock.nstep == 4
+    errs = _rel_errors(js, ts)
+    bad = {k: v for k, v in errs.items()
+           if v > (1e-6 if k in PROGNOSTIC else 1e-5)}
+    assert not bad, bad
+
+
+def test_invariants_odd_steps(models):
+    """5 steps (the odd tail included): finite fields, mass conserved to
+    roundoff, uniform salinity kept (compatible advection)."""
+    _, tm = models
+    s0 = tm.state.dp.clone()
+    s, clock = tst.run(tm, 5)
+    assert torch.equal(tm.state.dp, s0)      # run leaves the model's state
+    assert clock.nstep == 5
+    g = tm.grid
+    for name in ('dp', 'temp', 'saln', 'u', 'v', 'pb'):
+        assert torch.isfinite(getattr(s, name)).all(), name
+    mass0 = float((s0[1].sum(0) * g.scp2 * g.ip).sum())
+    mass = float((s.dp[0].sum(0) * g.scp2 * g.ip).sum())
+    assert abs(mass - mass0) / mass0 < 1e-13
+    assert float(((s.saln[0] - 35.) * g.ip).abs().max()) < 1e-12
+    assert float(s.v.abs().max()) > 0.
+
+
+def test_entry_point_needs_cuda_or_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        tst.build_fuk95(**SIZE)
+
+
+@pytest.mark.parametrize('change', [
+    dict(ale=object()), dict(vmix=object()), dict(difest=object()),
+    dict(vcoord_isopyc=True), dict(advmth='remap'), dict(itriag=0),
+    dict(itrbgc=0), dict(thermf=tstep.ThermfParams(trxday=30.))])
+def test_unported_phases_raise(models, change):
+    _, tm = models
+    par = tm.par._replace(**change)
+    with pytest.raises(NotImplementedError):
+        tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
+                        tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.)
