@@ -2,7 +2,8 @@
 
 The dicts are keyed by the field names the JAX package uses (they match
 the port's), so a caller can carry a blom_tpu Grid, State, CppmCoeffs,
-Forcing or DiffusionFields across with ``np.asarray`` on each field.
+Forcing, DiffusionFields, SwabsFields, CmnFields or VmixFields across
+with ``np.asarray`` on each field.
 Nothing here touches a JAX object."""
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import torch
 
 from .core.grid import TENSOR_FIELDS, Grid
 from .core.state import State
+from .dynamics.cmnfld import CmnFields
 from .dynamics.cppm import CppmCoeffs
 from .dynamics.diffusion_fields import DiffusionFields
 from .phys.forcing import Forcing
+from .phys.swabs import SwabsFields
+from .phys.vmix import VmixFields
 
 
 def _t(a, dtype, device):
@@ -57,3 +61,17 @@ def forcing_from_numpy(d, dtype=torch.float64, device='cpu') -> Forcing:
 def diffusion_fields_from_numpy(d, dtype=torch.float64,
                                 device='cpu') -> DiffusionFields:
     return DiffusionFields(**_fields(DiffusionFields, d, dtype, device))
+
+
+def swabs_from_numpy(d, dtype=torch.float64, device='cpu') -> SwabsFields:
+    return SwabsFields(**_fields(SwabsFields, d, dtype, device))
+
+
+def cmn_fields_from_numpy(d, dtype=torch.float64, device='cpu') -> CmnFields:
+    return CmnFields(**{k: _t(d[k], dtype, device)
+                        for k in CmnFields._fields})
+
+
+def vmix_fields_from_numpy(d, dtype=torch.float64,
+                           device='cpu') -> VmixFields:
+    return VmixFields(**_fields(VmixFields, d, dtype, device))

@@ -1,7 +1,8 @@
 """Equation of state: rational-function fit of in-situ density.
 
 Counterpart of the functions of `blom_tpu/core/eos.py` that pgforc,
-pbcor2 and the initial state use (BLOM's mod_eos.F90).  In-situ density
+pbcor2, the initial state, the ALE regrid, cmnfld and the vertical
+mixing use (BLOM's mod_eos.F90).  In-situ density
 is rho(p, th, s) = P1/P2 with P1, P2 bilinear in p and quadratic in
 (th, s).  Every function is elementwise on tensors and computes in the
 dtype of its inputs; coefficients live in an `EosParams` built by
@@ -42,6 +43,7 @@ class EosParams:
     """Pressure-reference-dependent EOS coefficients (mod_eos.F90:85-160)."""
 
     pref: float
+    # sigma referenced at pref
     ap11: float
     ap12: float
     ap13: float
@@ -54,6 +56,19 @@ class EosParams:
     ap24: float
     ap25: float
     ap26: float
+    # sigma referenced at the surface
+    ap110: float
+    ap120: float
+    ap130: float
+    ap140: float
+    ap150: float
+    ap160: float
+    ap210: float
+    ap220: float
+    ap230: float
+    ap240: float
+    ap250: float
+    ap260: float
     atf: float
     btf: float
     ctf: float
@@ -81,10 +96,20 @@ def init_eos(pref: float = 0.0, expcnf: str = 'fuk95') -> EosParams:
     ap14 = a14 - ap24 / alpha0
     ap15 = a15 - ap25 / alpha0
     ap16 = a16 - ap26 / alpha0
+    ap210, ap220, ap230, ap240, ap250, ap260 = a21, a22, a23, a24, a25, a26
+    ap110 = a11 - ap210 / alpha0
+    ap120 = a12 - ap220 / alpha0
+    ap130 = a13 - ap230 / alpha0
+    ap140 = a14 - ap240 / alpha0
+    ap150 = a15 - ap250 / alpha0
+    ap160 = a16 - ap260 / alpha0
     atf, btf, ctf = _FREEZE_COEFFS[expcnf]
     return EosParams(pref=pref, ap11=ap11, ap12=ap12, ap13=ap13, ap14=ap14,
                      ap15=ap15, ap16=ap16, ap21=ap21, ap22=ap22, ap23=ap23,
                      ap24=ap24, ap25=ap25, ap26=ap26,
+                     ap110=ap110, ap120=ap120, ap130=ap130, ap140=ap140,
+                     ap150=ap150, ap160=ap160, ap210=ap210, ap220=ap220,
+                     ap230=ap230, ap240=ap240, ap250=ap250, ap260=ap260,
                      atf=atf, btf=btf, ctf=ctf)
 
 
@@ -114,6 +139,57 @@ def sig(e: EosParams, th, s):
              + (e.ap13 + e.ap16 * s) * s)
             / (e.ap21 + (e.ap22 + e.ap24 * th + e.ap25 * s) * th
                + (e.ap23 + e.ap26 * s) * s))
+
+
+def sig0(e: EosParams, th, s):
+    """Potential density at the surface reference pressure
+    (mod_eos.F90:213-227)."""
+    return ((e.ap110 + (e.ap120 + e.ap140 * th + e.ap150 * s) * th
+             + (e.ap130 + e.ap160 * s) * s)
+            / (e.ap210 + (e.ap220 + e.ap240 * th + e.ap250 * s) * th
+               + (e.ap230 + e.ap260 * s) * s))
+
+
+def dsigdt(e: EosParams, th, s):
+    """d(sig)/d(th) (mod_eos.F90:254-263)."""
+    r1 = (e.ap11 + (e.ap12 + e.ap14 * th + e.ap15 * s) * th
+          + (e.ap13 + e.ap16 * s) * s)
+    r2i = 1.0 / (e.ap21 + (e.ap22 + e.ap24 * th + e.ap25 * s) * th
+                 + (e.ap23 + e.ap26 * s) * s)
+    return ((e.ap12 + 2.0 * e.ap14 * th + e.ap15 * s
+             - (e.ap22 + 2.0 * e.ap24 * th + e.ap25 * s) * r1 * r2i) * r2i)
+
+
+def dsigds(e: EosParams, th, s):
+    """d(sig)/d(s) (mod_eos.F90:306-325)."""
+    r1 = (e.ap11 + (e.ap12 + e.ap14 * th + e.ap15 * s) * th
+          + (e.ap13 + e.ap16 * s) * s)
+    r2i = 1.0 / (e.ap21 + (e.ap22 + e.ap24 * th + e.ap25 * s) * th
+                 + (e.ap23 + e.ap26 * s) * s)
+    return ((e.ap13 + e.ap15 * th + 2.0 * e.ap16 * s
+             - (e.ap23 + e.ap25 * th + 2.0 * e.ap26 * s) * r1 * r2i) * r2i)
+
+
+def dsigdt0(e: EosParams, th, s):
+    """d(sig0)/d(th) (mod_eos.F90:263-282)."""
+    r1 = (e.ap110 + (e.ap120 + e.ap140 * th + e.ap150 * s) * th
+          + (e.ap130 + e.ap160 * s) * s)
+    r2i = 1.0 / (e.ap210 + (e.ap220 + e.ap240 * th + e.ap250 * s) * th
+                 + (e.ap230 + e.ap260 * s) * s)
+    return ((e.ap120 + 2.0 * e.ap140 * th + e.ap150 * s
+             - (e.ap220 + 2.0 * e.ap240 * th + e.ap250 * s) * r1 * r2i)
+            * r2i)
+
+
+def dsigds0(e: EosParams, th, s):
+    """d(sig0)/d(s) (mod_eos.F90:326-345)."""
+    r1 = (e.ap110 + (e.ap120 + e.ap140 * th + e.ap150 * s) * th
+          + (e.ap130 + e.ap160 * s) * s)
+    r2i = 1.0 / (e.ap210 + (e.ap220 + e.ap240 * th + e.ap250 * s) * th
+                 + (e.ap230 + e.ap260 * s) * s)
+    return ((e.ap130 + e.ap150 * th + 2.0 * e.ap160 * s
+             - (e.ap230 + e.ap250 * th + 2.0 * e.ap260 * s) * r1 * r2i)
+            * r2i)
 
 
 def tofsig(e: EosParams, sg, s):

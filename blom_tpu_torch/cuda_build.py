@@ -3,7 +3,8 @@
 Each source under `csrc/` is compiled by nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes.  Libraries go to
 `build/blom_tpu_torch/` under the repository root, named by a hash of
-the source and flags, so an edited source is rebuilt.  Nothing is
+the source, the headers under `csrc/` and the flags, so an edited source
+or header is rebuilt.  Nothing is
 compiled or loaded at import; `build_all` compiles every source in
 parallel (one nvcc process each) and `library` loads one, building it
 first if needed."""
@@ -20,7 +21,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'blom_tpu_torch'
-SOURCES = ('cppm_sweep', 'momtum_uv')
+SOURCES = ('cppm_sweep', 'momtum_uv', 'ale_regrid', 'ale_remap')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
@@ -38,7 +39,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (PACKAGE_DIR / 'csrc' / f'{name}.cu').read_bytes()
+    csrc = PACKAGE_DIR / 'csrc'
+    src = (csrc / f'{name}.cu').read_bytes()
+    src += b''.join(h.read_bytes() for h in sorted(csrc.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
 

@@ -15,11 +15,13 @@ from ..core import eos, init, modeltime
 from ..core.grid import Grid
 from ..core.state import State
 from ..dynamics import cppm as cppm_mod
+from ..dynamics.ale import make_ale_params
 from ..dynamics.barotp import BarotpParams
 from ..dynamics.diffusion_fields import DiffusionFields, zero_diffusion_fields
 from ..dynamics.momtum import MomtumParams
 from ..dynamics.step import StepParams, blom_step, two_step
 from ..phys.forcing import Forcing, zero_forcing
+from ..phys.swabs import SwabsFields, init_swabs
 
 
 @dataclasses.dataclass
@@ -33,17 +35,20 @@ class Model:
     state: State
     forcing: Forcing
     dfl: DiffusionFields
+    swabs: SwabsFields
 
 
 def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                 device=None) -> Model:
     """Assemble the fuk95 experiment (tests/fuk95/limits deck values).
 
-    Matches blom_tpu's build_fuk95 field for field, except that the
-    phases not ported yet are off: ``par.ale``, ``par.vmix`` and
-    ``par.difest`` are None (no ALE regrid/remap, no vertical mixing,
-    no lateral diffusivities).  This is the adiabatic dynamical core.
-    `device` defaults to CUDA and raises when CUDA is missing."""
+    Matches blom_tpu's build_fuk95 (cntiso_hybrid, no extra tracers)
+    field for field: the ALE regrid/remap (`make_ale_params(kdm)`), the
+    CVMix-lite vertical mixing (`VmixParams()`), the lateral diffusivity
+    estimate (`DifestParams()`) and Jerlov type-3 shortwave absorption.
+    ``par._replace(ale=None, vmix=None, difest=None)`` gives the
+    adiabatic dynamical core.  `device` defaults to CUDA and raises when
+    CUDA is missing."""
     from ..configs import fuk95 as cfg
 
     if device is None:
@@ -75,7 +80,7 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                             mommth='enscon'),
         barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
         pgfmth='dynamic enthalpy', vcoord_isopyc=False,
-        ale=None, vmix=None, difest=None, itriag=-1, itrbgc=-1)
+        ale=make_ale_params(kdm), itriag=-1, itrbgc=-1)
 
     ip_np = grid.ip.cpu().double().numpy()
     coeffs_i = cppm_mod.init_cppm_coeffs(
@@ -87,9 +92,10 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
 
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
     dfl = zero_diffusion_fields(kdm, grid.shape, dtype, device)
+    swabs = init_swabs(grid.shape, 'jerlov', 3, dtype, device)
     return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
                  coeffs_j=coeffs_j, clock=clock, state=state,
-                 forcing=forcing, dfl=dfl)
+                 forcing=forcing, dfl=dfl, swabs=swabs)
 
 
 def run(model: Model, nsteps: int):
@@ -111,8 +117,9 @@ def run(model: Model, nsteps: int):
     n_even = (nsteps // 2) * 2
     for i in range(0, n_even, 2):
         s, dfl = two_step(*args, s, model.forcing, dfl,
-                          delt1s[i], delt1s[i + 1])
+                          delt1s[i], delt1s[i + 1], model.swabs)
     if nsteps % 2:
-        s, dfl = blom_step(*args, s, model.forcing, dfl, 0, 1, delt1s[-1])
+        s, dfl = blom_step(*args, s, model.forcing, dfl, 0, 1, delt1s[-1],
+                           model.swabs)
     model.dfl = dfl
     return s, c

@@ -1,0 +1,129 @@
+"""Wrappers of the CUDA ALE kernels (csrc/ale_regrid.cu, csrc/ale_remap.cu).
+
+`regrid_cuda` replaces blom_tpu's Pallas kernel K1
+(`dynamics/ale_pallas.py` regrid_call), `remap_cuda` its kernel K2
+(`_remap_chunk` / remap_call).  Each wrapper checks devices, dtypes,
+shapes and contiguity, allocates the outputs, launches on the current
+stream and counts its launches (`regrid_launches`, `remap_launches`).
+They take CUDA tensors only; `ale.ale_regrid_remap` sends CPU tensors
+to the plain versions `ale.regrid_plain` and `ale.remap_plain`."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import hor3map as h3
+
+regrid_launches = 0
+remap_launches = 0
+
+KMAX = 64      # ALE_KMAX of csrc/ppm_column.cuh
+MAXNT = 32     # ALE_MAXNT of csrc/ale_remap.cu
+
+_DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
+
+
+def _fn(name, dtype, nargs):
+    from ..cuda_build import library
+    fn = getattr(library(name), f'{name}_{_DTYPES[dtype]}')
+    fn.argtypes = [ctypes.c_void_p] * nargs
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(ale, named, ref):
+    """Raise unless every tensor lies on ref's CUDA device with ref's
+    float dtype and is contiguous, and the limiting is ported."""
+    if ref.dtype not in _DTYPES:
+        raise TypeError(f'unsupported dtype {ref.dtype}')
+    for name, t in named.items():
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f'{name} is not on {ref.device}')
+        if t.dtype != ref.dtype:
+            raise TypeError(f'{name} is {t.dtype}, expected {ref.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} is not contiguous')
+    for lim in (ale.tracer_limiting, ale.velocity_limiting):
+        if lim != h3.NON_OSCILLATORY:
+            raise NotImplementedError(
+                f'ALE kernels take limiting={h3.NON_OSCILLATORY!r}, '
+                f'not {lim!r}')
+
+
+def _shapes(kk, J, I, k1, k0):
+    """Raise unless the (kk+1)- and kk-level fields have their shapes."""
+    if not 3 <= kk <= KMAX:
+        raise ValueError(f'kk={kk} is outside [3, {KMAX}]')
+    for shape, fields in (((kk + 1, J, I), k1), ((kk, J, I), k0)):
+        for name, t in fields.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                                 f'expected {shape}')
+
+
+def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
+    """Same contract as ale.regrid_plain, on the card: (p_dst,
+    smooth_fac)."""
+    global regrid_launches
+    kk1, J, I = p_src.shape
+    kk = kk1 - 1
+    k1 = {'p_src': p_src}
+    k0 = {'temp': temp, 'saln': saln, 'sigmar': sigmar}
+    _check(ale, {**k1, **k0}, p_src)
+    _shapes(kk, J, I, k1, k0)
+    if len(ale.plevel) != kk:
+        raise ValueError(f'plevel has {len(ale.plevel)} levels, not {kk}')
+
+    p_dst = torch.empty_like(p_src)
+    sfac = torch.empty_like(p_src)
+    ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in (
+        p_src, temp, saln, sigmar, p_dst, sfac)])
+    iargs = (ctypes.c_int * 4)(kk, J * I, ale.k_range_plevel,
+                               int(ale.tracer_pc_upper))
+    ap = [e.ap11, e.ap12, e.ap13, e.ap14, e.ap15, e.ap16,
+          e.ap21, e.ap22, e.ap23, e.ap24, e.ap25, e.ap26]
+    dvals = [delt1 / ale.regrid_nudge_ts, ale.dpmin_interior,
+             ale.stab_fac_limit] + ap + list(ale.plevel)
+    dargs = (ctypes.c_double * len(dvals))(*dvals)
+    stream = torch.cuda.current_stream(p_src.device).cuda_stream
+    with torch.cuda.device(p_src.device):
+        err = _fn('ale_regrid', p_src.dtype, 4)(ptrs, iargs, dargs, stream)
+    from ..cuda_build import check
+    check(err, 'ale_regrid')
+    regrid_launches += 1
+    return p_dst, sfac
+
+
+def remap_cuda(ale, p_src, tms, pu_q, u, pv_q, v, p_dst, pu_new, pv_new):
+    """Same contract as ale.remap_plain, on the card: (means, u_mean,
+    v_mean) with one mean per tracer of tms."""
+    global remap_launches
+    kk1, J, I = p_src.shape
+    kk = kk1 - 1
+    nt = len(tms)
+    if nt > MAXNT:
+        raise ValueError(f'{nt} tracers, the kernel takes up to {MAXNT}')
+    k1 = {'p_src': p_src, 'pu_q': pu_q, 'pv_q': pv_q, 'p_dst': p_dst,
+          'pu_new': pu_new, 'pv_new': pv_new}
+    k0 = {'u': u, 'v': v, **{f'tms[{t}]': tm for t, tm in enumerate(tms)}}
+    _check(ale, {**k1, **k0}, p_src)
+    _shapes(kk, J, I, k1, k0)
+
+    u_out = torch.empty_like(u)
+    v_out = torch.empty_like(v)
+    means = [torch.empty_like(tm) for tm in tms]
+    tensors = [p_src, pu_q, u, pv_q, v, p_dst, pu_new, pv_new, u_out,
+               v_out] + list(tms) + means
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr()
+                                              for t in tensors])
+    iargs = (ctypes.c_int * 5)(kk, J * I, nt, int(ale.tracer_pc_upper),
+                               int(ale.velocity_pc_upper))
+    stream = torch.cuda.current_stream(p_src.device).cuda_stream
+    with torch.cuda.device(p_src.device):
+        err = _fn('ale_remap', p_src.dtype, 3)(ptrs, iargs, stream)
+    from ..cuda_build import check
+    check(err, 'ale_remap')
+    remap_launches += 1
+    return means, u_out, v_out

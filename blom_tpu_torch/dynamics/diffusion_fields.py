@@ -1,8 +1,13 @@
 """Lateral diffusion / eddy-transport parameter fields.
 
 Counterpart of `blom_tpu/dynamics/diffusion_fields.py` (BLOM's
-mod_diffusion.F90).  With the lateral diffusivity estimate off, as in
-this slice, the fields stay at their zero initial values (difwgt = 1)."""
+mod_diffusion.F90).  Zero-initialized (difwgt = 1); each step with
+`par.difest` on, difest_lateral fills difint/difiso/difwgt, eddtra the
+mid level of umfltd/vmfltd and diffus the isopycnal heat/salt fluxes
+utflld..vsflld; with `par.vmix` on, the vertical diffusivities
+difvho/difvso/difvmo and the boundary-layer depth bld are stored for
+diagnostics.  difdia, umflsm/vmflsm and mtke belong to phases not
+ported and stay zero."""
 
 from __future__ import annotations
 

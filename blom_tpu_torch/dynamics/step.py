@@ -1,18 +1,22 @@
-"""One baroclinic model step: the adiabatic dynamical core.
+"""One baroclinic model step.
 
 Counterpart of `blom_tpu/dynamics/step.py` (BLOM's
-mod_blom_step.F90:74-324) for the branches ported so far: tmsmt1,
-advect (CPPM), pbcor1, pgforc (dynamic enthalpy), momtum (enscon),
-barotp, pbcor2 and tmsmt2.  The ALE regrid/remap, the lateral
-diffusivity estimate (with eddy transport and lateral diffusion) and
-vertical mixing are not ported yet: `blom_step` raises
-NotImplementedError naming the phase when a parameter asks for them.
+mod_blom_step.F90:74-324) for the ALE (cntiso_hybrid) configuration:
+tmsmt1, the ALE regrid/remap, cmnfld with the lateral diffusivities and
+the GM eddy transport, advect (CPPM), pbcor1, the along-layer lateral
+diffusion, pgforc (dynamic enthalpy), momtum (enscon), the CVMix-lite
+vertical mixing with the implicit vertical diffusion of tracers and
+momentum, barotp, pbcor2 and tmsmt2, each under blom_tpu's guard.
+`check_supported` raises NotImplementedError naming every option the
+port does not run (see there).
 
 The step updates the State in place; m, n are the Python-int time-level
-slots and delt1 a Python float, so the step makes no host sync."""
+slots and delt1 a Python float.  The eddy-transport limiter reads one
+flag on the host per sweep (eddtra.host_syncs); nothing else syncs."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,10 +25,18 @@ from ..core import eos
 from ..core.grid import Grid
 from ..core.state import State
 from ..phys.forcing import Forcing
+from ..phys.swabs import SwabsFields
+from ..phys.vmix import VmixParams, difest_vertical, unported_vmix
 from .advect import advect
+from .ale import AleParams, ale_regrid_remap, unported_ale
+from .ale_vdiff import ale_vdifft, ale_vdiffm
 from .barotp import BarotpParams, barotp
+from .cmnfld import cmnfld
 from .cppm import CppmCoeffs
+from .difest import DifestParams, difest_lateral
+from .diffus import diffus
 from .diffusion_fields import DiffusionFields
+from .eddtra import eddtra
 from .momtum import MomtumParams, momtum
 from .pbcor import pbcor1, pbcor2
 from .pgforc import pgforc
@@ -39,9 +51,7 @@ class ThermfParams(NamedTuple):
 
 
 class StepParams(NamedTuple):
-    """Static per-run parameters of the step function.  `ale`, `vmix` and
-    `difest` hold the parameters of phases not ported yet and must be
-    None."""
+    """Static per-run parameters of the step function."""
     baclin: float
     lstep: int
     dlt: float
@@ -52,28 +62,36 @@ class StepParams(NamedTuple):
     cppm_compatibility: str = 'full'
     cppm_limiting: str = 'non_oscillatory'
     vcoord_isopyc: bool = False
-    ale: Optional[object] = None
-    vmix: Optional[object] = None
+    ale: Optional[AleParams] = None
+    vmix: Optional[VmixParams] = VmixParams()
     itriag: int = -1
     itrtke: int = -1
     itrgls: int = -1
     itrbgc: int = -1
     nday_in_year: float = 360.
-    difest: Optional[object] = None
+    difest: Optional[DifestParams] = DifestParams()
     thermf: Optional[ThermfParams] = ThermfParams()
+    ltedtp: str = 'layer'     # 'layer' | 'neutral' (mod_diffusion.F90:99)
+
+
+def _diffus_on(par: StepParams) -> bool:
+    return par.difest is not None and (par.difest.egc > 0.
+                                       or par.difest.egmndf > 0.)
 
 
 def check_supported(grid: Grid, par: StepParams):
-    """Raise NotImplementedError, naming the phase, for any option this
-    port does not run yet."""
+    """Raise NotImplementedError, naming the option, for anything this
+    port does not run: the direct regrid and reconstructions other than
+    PPM, KPP and tidal mixing, neutral diffusion, the isopycnic
+    coordinate, other advection schemes, the ideal-age, BGC and TKE/GLS
+    tracers, surface restoring and tripolar grids."""
     missing = []
     if par.ale is not None:
-        missing.append('ALE regrid/remap (par.ale)')
+        missing += unported_ale(par.ale)
     if par.vmix is not None:
-        missing.append('vertical mixing (par.vmix)')
-    if par.difest is not None:
-        missing.append('lateral diffusivities and eddy transport '
-                       '(par.difest)')
+        missing += unported_vmix(par.vmix)
+    if _diffus_on(par) and par.ltedtp == 'neutral':
+        missing.append("neutral diffusion (ltedtp='neutral')")
     if par.vcoord_isopyc:
         missing.append('isopycnic coordinate (par.vcoord_isopyc)')
     if par.advmth != 'cppm':
@@ -90,8 +108,8 @@ def check_supported(grid: Grid, par: StepParams):
     if grid.arctic:
         missing.append('tripolar grid')
     if missing:
-        raise NotImplementedError(
-            'not ported to blom_tpu_torch yet: ' + '; '.join(missing))
+        raise NotImplementedError('not ported to blom_tpu_torch: '
+                                  + '; '.join(missing))
 
 
 # Per-phase device timing, off (None) by default.  A caller that sets
@@ -119,24 +137,64 @@ def init_fluxes(s: State, m: int) -> State:
 def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
               coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs,
               s: State, forcing: Forcing, dfl: DiffusionFields,
-              m: int, n: int, delt1: float):
+              m: int, n: int, delt1: float,
+              swabs: Optional[SwabsFields] = None):
     """Advance one baroclinic time step (mod_blom_step.F90:74-324) in
-    place.  Returns (state, dfl)."""
+    place.  Returns (state, dfl): the diffusion and eddy-transport fields
+    are per-step state (difest/eddtra fill them, advect and momtum read
+    them).  Vertical mixing runs when par.vmix and swabs are given."""
     check_supported(grid, par)
     dlt = par.dlt
     _mark('init_fluxes+tmsmt1')
     s = init_fluxes(s, m)
     s = tmsmt1(grid, s, n)
+
+    # ALE vertical regrid + remap (mod_blom_step.F90:131-135)
+    if par.ale is not None:
+        _mark('ale_regrid_remap')
+        s = ale_regrid_remap(grid, e, par.ale, s, m, n, delt1)
+
+    # derived fields, lateral diffusivities, GM eddy transport
+    # (mod_blom_step.F90:136-147)
+    if par.difest is not None:
+        _mark('cmnfld')
+        cf = cmnfld(grid, e, s, n)
+        _mark('difest_lateral')
+        dfl = difest_lateral(grid, s, cf, par.difest, dfl, m, n)
+        if par.difest.egc > 0.:
+            _mark('eddtra')
+            dfl = eddtra(grid, s, cf, dfl, m, n, delt1)
+
     _mark('advect')
     s = advect(grid, s, dfl, coeffs_i, coeffs_j, m, n, delt1, dlt,
                par.advmth, par.cppm_compatibility, par.cppm_limiting)
     _mark('pbcor1')
     s = pbcor1(grid, s, m, n, dlt)
+
+    # along-layer lateral tracer diffusion (mod_blom_step.F90:152)
+    if _diffus_on(par):
+        _mark('diffus')
+        s, dfl = diffus(grid, e, s, dfl, m, n, delt1)
+
     _mark('pgforc')
     s = pgforc(grid, e, s, m, n, par.pgfmth)
     _mark('momtum')
     s, utotn, vtotn = momtum(grid, s, forcing, par.momtum, dfl.difwgt,
                              m, n, delt1, dlt)
+
+    # vertical physics (mod_blom_step.F90:196-207): mixing coefficients
+    # and penetration factors, then implicit vertical diffusion
+    if par.vmix is not None and swabs is not None:
+        _mark('difest_vertical')
+        vf = difest_vertical(grid, e, s, forcing, swabs, par.vmix, n)
+        dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t,
+                                  difvso=vf.Kdiff_s, difvmo=vf.Kvisc_m,
+                                  bld=vf.mld * grid.ip)
+        _mark('ale_vdifft')
+        s = ale_vdifft(grid, e, s, forcing, vf, m, n, delt1)
+        _mark('ale_vdiffm')
+        s = ale_vdiffm(grid, s, vf, m, n, delt1)
+
     _mark('barotp')
     s = barotp(grid, s, utotn, vtotn, m, n, par.lstep, dlt, par.barotp)
     _mark('pbcor2')
@@ -149,10 +207,11 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
 
 def two_step(grid: Grid, e: eos.EosParams, par: StepParams,
              coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs, s: State,
-             forcing: Forcing, dfl: DiffusionFields, d1: float, d2: float):
+             forcing: Forcing, dfl: DiffusionFields, d1: float, d2: float,
+             swabs: Optional[SwabsFields] = None):
     """Two steps covering both time-level parities: (m, n) = (0, 1) then
     (1, 0) — the body of blom_tpu's make_two_step scan."""
     s, dfl = blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                       0, 1, d1)
+                       0, 1, d1, swabs)
     return blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                     1, 0, d2)
+                     1, 0, d2, swabs)

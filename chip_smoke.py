@@ -6,22 +6,28 @@
 Phases, each reported as one JSON line; any failure exits nonzero:
 
 1. the card: name and power limit from nvidia-smi;
-2. build: both CUDA kernels compiled by nvcc for sm_90a from the sources
-   under blom_tpu_torch/csrc, with ptxas registers and spills;
+2. build: the four CUDA kernels compiled by nvcc for sm_90a from the
+   sources under blom_tpu_torch/csrc (one nvcc each, all at once), with
+   ptxas registers, stack frames and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (kk=53, J=360, I=384, two tracers), in f64
-   (rtol = atol = 1e-12) and in f32 (max |err| <= F32_REL * max |ref|
-   per output); median time of the kernel and of the plain version from
-   CUDA events, the bound from the bytes each call must move, and the
+   at the main path's shapes (kk=53, J=360, I=384; two CPPM tracers; the
+   ALE remap with ntr 0 and 5), in f64 (rtol = atol = 1e-12) and in f32
+   (max |err| <= F32_REL * max |ref| per output); median time of the
+   kernel and of the plain version from CUDA events, the bound from the
+   bytes each call must move and the operations its loops do, and the
    device time of each momentum stage from torch.profiler;
-4. slice: the fuk95 adiabatic dynamical core at 384x360x53 in f32 through
-   build_fuk95 and run, for 10 and for 11 steps: finite fields, mass
-   drift, uniform salinity, launch counts (CPPM 2 per step, momentum 3
-   stage launches per step), seconds per step and grid-points/s after a
-   warm-up; then the device time of each phase of the step, from the
-   events blom_step records;
-5. parity: a 24x8x8 f64 run of 4 steps on the card against the same run
-   on the CPU;
+4. slice: the full fuk95 step (ALE regrid/remap, lateral and vertical
+   mixing) with bench.py's physics at 384x360x53 in f32 through
+   build_fuk95 and run, for 10 and for 11 steps after a warm-up: finite
+   fields, mass drift, salinity near 35 (SALN_DEV_ALE), launch counts
+   (CPPM 2, momentum 3 stage launches, ALE regrid 1 and ALE remap 1 per
+   step), the eddy-transport limiter's host syncs per step, seconds per
+   step and grid-points/s; then the device time of each phase of the step, from
+   the events blom_step records; then the adiabatic core alone
+   (par._replace(ale=None, vmix=None, difest=None)) for a few steps;
+5. parity: the full step at 24x8x8 in f64 on the card against the CPU,
+   one step at each time-level parity (gated), and 4 driver steps
+   (reported);
 6. the kernels summary line, then the device line last.
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
@@ -41,6 +47,14 @@ SEED = 1234
 KK, JJ, II, NT = 53, 360, 384, 2
 F32_REL = 1e-4          # f32 kernel tolerance, relative to max |ref|
 STEP_REL = 1e-5         # whole-step parity tolerance (see tests)
+# salinity over water stays within these of its uniform 35: the adiabatic
+# core keeps it to rounding; the ALE remap integrates each column from
+# its top, and in f32 the difference of two such integrals over a thin
+# destination layer loses ~1e-5 of 35 per step (blom_tpu's jnp ALE in
+# f32 gives the same 2.4e-4 after one step at 96x32x53)
+SALN_DEV = 1e-4
+SALN_DEV_ALE = 5e-3
+NTR_CHECK = (0, 5)      # tracer counts of the ALE remap check
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 
@@ -316,6 +330,117 @@ def check_momtum(dev, results):
     return ok_all
 
 
+def ale_inputs(dtype, dev, ntr=0):
+    """Columns as in tests/test_ale_pallas.py at the main path's shape:
+    interfaces, T, S, target densities, tracers, velocities on their own
+    interfaces and destination grids from the plain regrid."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    H3 = (KK, JJ, II)
+
+    def cum(dp):
+        return np.concatenate([np.zeros((1, JJ, II)), np.cumsum(dp, 0)])
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+    p = cum(rng.uniform(.5, 3., H3) * 1.e4)
+    temp = rng.uniform(2., 18., H3)
+    saln = rng.uniform(33., 36., H3)
+    sigmar = np.sort(rng.uniform(24., 28., H3), axis=0)
+    trc = [t(rng.uniform(0., 2., H3)) for _ in range(ntr)]
+    u, v = rng.uniform(-.3, .3, H3), rng.uniform(-.3, .3, H3)
+    pu = cum(rng.uniform(.5, 3., H3) * 1.e4)
+    pv = cum(rng.uniform(.5, 3., H3) * 1.e4)
+    return dict(p=t(p), temp=t(temp), saln=t(saln), sigmar=t(sigmar),
+                trc=trc, u=t(u), v=t(v), pu=t(pu), pv=t(pv))
+
+
+# arithmetic operations per column, counted from the loops of
+# csrc/ale_regrid.cu and csrc/ale_remap.cu (with csrc/ppm_column.cuh):
+# ~90 per edge for the weights, 7 per edge and field for the edge value,
+# ~20 per cell and field for the limiter tests and the coefficients, ~40
+# per cell for the two densities, ~10 per interface for the regime
+# choice and the clamp; in K2 ~6 per cell for the prefix sum and ~15 per
+# destination edge.  The data-dependent branches (the slope clamp and
+# parabola limit where they apply, the search for the transition
+# interface, the isopycnal nudge) are not counted, so these counts and
+# the bounds from them are lower bounds.
+def ale_regrid_ops():
+    return (KK + 1) * (90 + 2 * 7) + KK * (2 * 20 + 40 + 10)
+
+
+def ale_remap_ops(ntr):
+    per_field = (KK + 1) * 7 + KK * (20 + 6) + (KK + 1) * 15
+    return 3 * (KK + 1) * 90 + (2 + ntr + 2) * per_field
+
+
+def ale_bytes(dtype, kind, ntr=0):
+    import torch
+    es = torch.finfo(dtype).bits // 8
+    if kind == 'regrid':      # p_src, temp, saln, sigmar -> p_dst, sfac
+        levels = 3 * (KK + 1) + 3 * KK
+    else:                     # 6 interface fields, tracers + u, v in/out
+        levels = 6 * (KK + 1) + 2 * (2 + ntr + 2) * KK
+    return es * levels * JJ * II
+
+
+def check_ale(dev, results):
+    import torch
+    from blom_tpu_torch.core import eos
+    from blom_tpu_torch.dynamics import ale, ale_cuda
+    e = eos.init_eos(pref=0., expcnf='fuk95')
+    par = ale.make_ale_params(KK)
+    delt1 = 360.
+    ok_all = True
+    for dtype in (torch.float64, torch.float32):
+        for ntr in NTR_CHECK:
+            x = ale_inputs(dtype, dev, ntr)
+            rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
+                     delt1)
+            ref = ale.regrid_plain(*rargs)
+            if ntr == 0:
+                out = ale_cuda.regrid_cuda(*rargs)
+                torch.cuda.synchronize()
+                ok, eabs, erel = compare(out, ref, dtype)
+                rec = dict(kernel='ale_regrid', dtype=str(dtype)[6:], ok=ok,
+                           max_abs_err=eabs, max_rel_err=erel)
+                if dtype == torch.float32:
+                    rec['ms'] = time_ms(lambda: ale_cuda.regrid_cuda(*rargs))
+                    rec['plain_ms'] = time_ms(
+                        lambda: ale.regrid_plain(*rargs), reps=5, warm=1)
+                    b, by = bound(ale_bytes(dtype, 'regrid'),
+                                  ale_regrid_ops() * JJ * II)
+                    rec['bound_ms'], rec['bound_by'] = b, by
+                emit('kernel_check', **rec)
+                results.append(rec)
+                ok_all &= ok
+            p_dst = ref[0]
+            margs = (par, x['p'], [x['temp'], x['saln']] + x['trc'],
+                     x['pu'], x['u'], x['pv'], x['v'], p_dst, p_dst * .98,
+                     p_dst * .97)
+            mref = ale.remap_plain(*margs)
+            mout = ale_cuda.remap_cuda(*margs)
+            torch.cuda.synchronize()
+            ok, eabs, erel = compare(
+                list(mout[0]) + [mout[1], mout[2]],
+                list(mref[0]) + [mref[1], mref[2]], dtype)
+            rec = dict(kernel='ale_remap', dtype=str(dtype)[6:], ntr=ntr,
+                       ok=ok, max_abs_err=eabs, max_rel_err=erel)
+            if dtype == torch.float32 and ntr == 0:
+                # the main path's configuration: fuk95 carries no tracers
+                rec['ms'] = time_ms(lambda: ale_cuda.remap_cuda(*margs))
+                rec['plain_ms'] = time_ms(lambda: ale.remap_plain(*margs),
+                                          reps=5, warm=1)
+                b, by = bound(ale_bytes(dtype, 'remap', ntr),
+                              ale_remap_ops(ntr) * JJ * II)
+                rec['bound_ms'], rec['bound_by'] = b, by
+            emit('kernel_check', **rec)
+            results.append(rec)
+            ok_all &= ok
+    return ok_all
+
+
 # ------------------------------------------------------------------ slice
 
 def mass(model, dp):
@@ -324,13 +449,37 @@ def mass(model, dp):
                   * g.ip.double()).sum())
 
 
+BENCH_DIFEST = dict(egc=.85, egmndf=100.)     # bench.py:67-69
+
+
+def counters():
+    """The launch counts of every kernel wrapper and the host syncs of
+    the eddy-transport limiter."""
+    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, eddtra
+    from blom_tpu_torch.dynamics import momtum_cuda
+    return {'cppm_sweep': cppm_cuda.launches,
+            'momtum_uv': momtum_cuda.launches,
+            'ale_regrid': ale_cuda.regrid_launches,
+            'ale_remap': ale_cuda.remap_launches,
+            'host_syncs': eddtra.host_syncs}
+
+
+def zero_counters():
+    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, eddtra
+    from blom_tpu_torch.dynamics import momtum_cuda
+    cppm_cuda.launches = momtum_cuda.launches = 0
+    ale_cuda.regrid_launches = ale_cuda.remap_launches = 0
+    eddtra.host_syncs = 0
+
+
 def run_slice(dev):
     import torch
     from blom_tpu_torch.drivers import standalone
-    from blom_tpu_torch.dynamics import cppm_cuda, momtum_cuda
+    from blom_tpu_torch.dynamics.difest import DifestParams
     t0 = time.perf_counter()
     model = standalone.build_fuk95(dtype=torch.float32, itdm=II, jtdm=JJ,
                                    kdm=KK, device=dev)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
     torch.cuda.synchronize()
     emit('slice_build', seconds=time.perf_counter() - t0)
     mass0 = mass(model, model.state.dp[1])
@@ -339,34 +488,65 @@ def run_slice(dev):
     torch.cuda.synchronize()
     ok_all = True
     launches = None
+    per_step = {'cppm_sweep': 2, 'momtum_uv': 3, 'ale_regrid': 1,
+                'ale_remap': 1}
     for nsteps in (10, 11):
-        cppm_cuda.launches = 0
-        momtum_cuda.launches = 0
+        zero_counters()
         t0 = time.perf_counter()
         s, _ = standalone.run(model, nsteps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {'cppm_sweep': cppm_cuda.launches,
-                  'momtum_uv': momtum_cuda.launches}
+        counts = counters()
+        syncs = counts.pop('host_syncs')
         if launches is None:
             launches = counts
-        new = 1 if nsteps % 2 == 0 else 0      # slot of the newest level
-        ip = model.grid.ip
-        finite = all(bool(torch.isfinite(getattr(s, f)).all())
-                     for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
-        drift = (mass(model, s.dp[new]) - mass0) / mass0
-        saln_dev = float(((s.saln[new] - 35.) * ip).abs().max())
-        ok = (finite and abs(drift) <= 1e-5 and saln_dev <= 1e-4
-              and counts['cppm_sweep'] == 2 * nsteps
-              and counts['momtum_uv'] == 3 * nsteps)
-        emit('slice', steps=nsteps, ok=ok, finite=finite,
-             rel_mass_drift=drift, max_saln_dev=saln_dev, launches=counts,
+        ok, rec = slice_gates(model, s, nsteps, mass0)
+        ok &= all(counts[k] == n * nsteps for k, n in per_step.items())
+        emit('slice', steps=nsteps, ok=ok, **rec, launches=counts,
+             host_syncs_per_step=syncs / nsteps,
              seconds_per_step=wall / nsteps,
-             gridpoints_per_s=II * JJ * KK * nsteps / wall,
-             max_abs_v=float(s.v.abs().max()))
+             gridpoints_per_s=II * JJ * KK * nsteps / wall)
         ok_all &= ok
     profile_phases(model)
+    ok_all &= run_core(model, mass0)
     return ok_all, launches
+
+
+def slice_gates(model, s, nsteps, mass0):
+    """Finite fields, mass drift <= 1e-5, salinity within SALN_DEV of 35
+    (SALN_DEV_ALE with the ALE remap on)."""
+    import torch
+    new = 1 if nsteps % 2 == 0 else 0      # slot of the newest level
+    finite = all(bool(torch.isfinite(getattr(s, f)).all())
+                 for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
+    drift = (mass(model, s.dp[new]) - mass0) / mass0
+    saln_dev = float(((s.saln[new] - 35.) * model.grid.ip).abs().max())
+    saln_tol = SALN_DEV if model.par.ale is None else SALN_DEV_ALE
+    ok = finite and abs(drift) <= 1e-5 and saln_dev <= saln_tol
+    return ok, dict(finite=finite, rel_mass_drift=drift,
+                    max_saln_dev=saln_dev, max_abs_v=float(s.v.abs().max()))
+
+
+def run_core(model, mass0, nsteps=4):
+    """The adiabatic dynamical core alone, through the same model."""
+    import dataclasses
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    core = dataclasses.replace(model, par=model.par._replace(
+        ale=None, vmix=None, difest=None))
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(core, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    ok, rec = slice_gates(core, s, nsteps, mass0)
+    ok &= (counts['cppm_sweep'] == 2 * nsteps
+           and counts['momtum_uv'] == 3 * nsteps
+           and counts['ale_regrid'] == counts['ale_remap'] == 0)
+    emit('slice_adiabatic_core', steps=nsteps, ok=ok, **rec,
+         launches=counts, seconds_per_step=wall / nsteps)
+    return ok
 
 
 def profile_phases(model, nsteps=4):
@@ -390,25 +570,54 @@ def profile_phases(model, nsteps=4):
          phase_ms=dict(sorted(ms.items(), key=lambda kv: -kv[1])))
 
 
-def run_parity(dev):
+def run_parity(dev, nsteps=4):
+    """The full step with bench.py's physics at 24x8x8 in f64, on the
+    card and on the CPU, from the same initial state.  Gated: one step at
+    each time-level parity, worst field's max |card - cpu| / max |cpu|
+    within STEP_REL.  Reported: the same after each of `nsteps` steps of
+    the driver; from the second step on, the regrid's case choices and
+    the eddy limiter flip on rounding-level differences (see
+    tests/test_torch_slice.py), so those are not gated."""
     import torch
     from blom_tpu_torch.drivers import standalone
-    worst = ('', 0.0)
-    out = {}
+    from blom_tpu_torch.dynamics import step
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    models = {}
     for d in (dev, 'cpu'):
         m = standalone.build_fuk95(dtype=torch.float64, itdm=24, jtdm=8,
                                    kdm=8, device=d)
-        out[d], _ = standalone.run(m, 4)
-    for name in ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx', 'vbflx',
-                 'pgfx', 'pgfy', 'uflx', 'vflx'):
-        a = getattr(out['cpu'], name)
-        b = getattr(out[dev], name).cpu()
-        r = float((a - b).abs().max() / a.abs().max().clamp_min(1e-300))
-        if r > worst[1]:
-            worst = (name, r)
-    ok = worst[1] <= STEP_REL
-    emit('parity_cuda_vs_cpu', ok=ok, steps=4, worst_field=worst[0],
-         worst_rel_err=worst[1], tolerance=STEP_REL)
+        m.par = m.par._replace(difest=DifestParams(**BENCH_DIFEST))
+        models[d] = m
+
+    def worst(a, b):
+        w = ('', 0.0)
+        for name in ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx',
+                     'vbflx', 'pgfx', 'pgfy', 'uflx', 'vflx'):
+            x = getattr(a, name)
+            y = getattr(b, name).cpu()
+            r = float((x - y).abs().max()
+                      / x.abs().max().clamp_min(1e-300))
+            if r > w[1]:
+                w = (name, r)
+        return w
+
+    one_step = {}
+    for m_, n_ in ((0, 1), (1, 0)):
+        out = {}
+        for d, mo in models.items():
+            out[d], _ = step.blom_step(
+                mo.grid, mo.e, mo.par, mo.coeffs_i, mo.coeffs_j,
+                mo.state.clone(), mo.forcing, mo.dfl, m_, n_,
+                mo.clock.delt1, mo.swabs)
+        one_step[f'm{m_}n{n_}'] = worst(out['cpu'], out[dev])
+    per_step = []
+    for k in range(1, nsteps + 1):
+        out = {d: standalone.run(mo, k)[0] for d, mo in models.items()}
+        per_step.append(worst(out['cpu'], out[dev]))
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('parity_cuda_vs_cpu', ok=ok, tolerance=STEP_REL,
+         one_step=one_step, driver_steps=nsteps,
+         driver_worst_per_step=per_step)
     return ok
 
 
@@ -443,6 +652,7 @@ def main():
     results = []
     ok = check_cppm(dev, results)
     ok &= check_momtum(dev, results)
+    ok &= check_ale(dev, results)
     ok_slice, launches = run_slice(dev)
     ok &= ok_slice
     ok &= run_parity(dev)
@@ -460,7 +670,11 @@ def main():
             ('cppm_sweep', 'blom_tpu_torch/csrc/cppm_sweep.cu',
              'blom_tpu/dynamics/cppm_pallas.py:181'),
             ('momtum_uv', 'blom_tpu_torch/csrc/momtum_uv.cu',
-             'blom_tpu/dynamics/momtum_pallas.py:74')):
+             'blom_tpu/dynamics/momtum_pallas.py:74'),
+            ('ale_regrid', 'blom_tpu_torch/csrc/ale_regrid.cu',
+             'blom_tpu/dynamics/ale_pallas.py:50'),
+            ('ale_remap', 'blom_tpu_torch/csrc/ale_remap.cu',
+             'blom_tpu/dynamics/ale_pallas.py:89')):
         rec = timed(name)[0]   # the main path's first configuration
         kernels.append({
             'name': name, 'route': 'cuda', 'source': src,
