@@ -1,9 +1,9 @@
 """Calendar arithmetic for the model clock.
 
 The port's own copy of the part of `blom_tpu/core/calendar.py` that the
-fuk95 clock needs (BLOM's mod_calendar.F90): the '360_day' calendar.
-Dates map to a day number so that offsets are integer arithmetic.  Pure
-Python, host side only."""
+fuk95 and channel clocks need (BLOM's mod_calendar.F90): the '360_day'
+calendar.  Dates map to a day number so that offsets are integer
+arithmetic.  Pure Python, host side only."""
 
 from __future__ import annotations
 

@@ -76,7 +76,8 @@ class EosParams:
 
 # expcnf -> freezing-temperature coefficients (atf, btf, ctf),
 # mod_eos.F90:135-150
-_FREEZE_COEFFS = {'fuk95': (-0.0547, 0.0, 0.0)}
+_FREEZE_COEFFS = {'fuk95': (-0.0547, 0.0, 0.0),
+                  'channel': (-0.0547, 0.0, 0.0)}
 
 
 def init_eos(pref: float = 0.0, expcnf: str = 'fuk95') -> EosParams:

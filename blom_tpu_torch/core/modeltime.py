@@ -1,10 +1,10 @@
 """Model clock: baroclinic/barotropic step bookkeeping.
 
 The port's own copy of the part of `blom_tpu/core/modeltime.py` that
-`init_timevars('fuk95', ...)` and the delt1 schedule of the standalone
-driver need (BLOM's mod_time.F90).  The clock is advanced on the host
-once per baroclinic step; only `delt1` enters the step, as a Python
-float.  The first steps from initial conditions are forward
+`init_timevars` of the fuk95 and channel experiments and the delt1
+schedule of the standalone driver need (BLOM's mod_time.F90).  The
+clock is advanced on the host once per baroclinic step; only `delt1`
+enters the step, as a Python float.  The first steps from initial conditions are forward
 (delt1 = baclin), later steps leap-frog (delt1 = 2*baclin)."""
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import math
 from . import calendar as cal
 
 # Calendar per experiment configuration (mod_time.F90:76-99).
-_EXPCNF_CALENDAR = {'fuk95': '360_day'}
+_EXPCNF_CALENDAR = {'fuk95': '360_day', 'channel': '360_day'}
 
 _EPSILT = 1.e-11
 

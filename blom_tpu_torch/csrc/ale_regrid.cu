@@ -6,6 +6,8 @@
 // Plain version: blom_tpu_torch/dynamics/ale.py regrid_plain.  The
 // monotonic minimum-thickness clamp is the sequential scan, as in the
 // plain version (the TPU kernel used the cummax form, ~1 ULP apart).
+// The T/S reconstruction takes the tracer limiter (ale.tracer_limiting),
+// a template parameter: one instantiation per limiter.
 //
 // One thread per (j, i) column; neighbouring threads take neighbouring
 // i, so every load and store of a (k, j, i) field is coalesced.  The k
@@ -43,7 +45,7 @@ template <typename T>
 struct Args {
   const T *p, *temp, *saln, *sigmar;
   T *p_dst, *sfac;
-  int kk, ncol, kb, pc_upper;
+  int kk, ncol, kb, pc_upper, limiter;
   double nudge_fac, dpmin, lim;
   double ap[12];   // ap11..ap16, ap21..ap26
   double plevel[ALE_KMAX];
@@ -84,7 +86,7 @@ struct Eos {
   }
 };
 
-template <typename T>
+template <typename T, int LIM>
 __global__ void __launch_bounds__(128) ale_regrid_kernel(const Args<T> a) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= a.ncol) return;
@@ -120,8 +122,8 @@ __global__ void __launch_bounds__(128) ale_regrid_kernel(const Args<T> a) {
       terS[q - 1] = eS;
     }
   }
-  limit_and_fit(kk, dx, tmT, telT, terT, a.pc_upper != 0);
-  limit_and_fit(kk, dx, tmS, telS, terS, a.pc_upper != 0);
+  limit_and_fit<LIM>(kk, dx, tmT, telT, terT, a.pc_upper != 0);
+  limit_and_fit<LIM>(kk, dx, tmS, telS, terS, a.pc_upper != 0);
   // now tel = c0, tm = c1, ter = c2
 
   // --- regrid_nudge
@@ -258,7 +260,9 @@ int launch(void *const *ptrs, const int *iargs, const double *dargs,
   a.ncol = iargs[1];
   a.kb = iargs[2];
   a.pc_upper = iargs[3];
-  if (a.kk < 3 || a.kk > ALE_KMAX) return (int)cudaErrorInvalidValue;
+  a.limiter = iargs[4];
+  if (a.kk < 3 || a.kk > ALE_KMAX || a.limiter < 0 || a.limiter >= N_LIM)
+    return (int)cudaErrorInvalidValue;
   a.nudge_fac = dargs[0];
   a.dpmin = dargs[1];
   a.lim = dargs[2];
@@ -267,7 +271,18 @@ int launch(void *const *ptrs, const int *iargs, const double *dargs,
     a.plevel[k] = k < a.kk ? dargs[15 + k] : 0.;
   const int threads = 128;
   const int blocks = (a.ncol + threads - 1) / threads;
-  ale_regrid_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (a.limiter) {
+    case LIM_MONOTONIC:
+      ale_regrid_kernel<T, LIM_MONOTONIC><<<blocks, threads, 0, s>>>(a);
+      break;
+    case LIM_NON_OSCILLATORY:
+      ale_regrid_kernel<T, LIM_NON_OSCILLATORY><<<blocks, threads, 0, s>>>(a);
+      break;
+    default:
+      ale_regrid_kernel<T, LIM_POSDEF><<<blocks, threads, 0, s>>>(a);
+      break;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -276,11 +291,12 @@ int launch(void *const *ptrs, const int *iargs, const double *dargs,
 extern "C" {
 
 // ptrs: p_src, temp, saln, sigmar, p_dst, smooth_fac.
-// iargs: kk, ncol (= J*I), k_range_plevel, tracer_pc_upper.
+// iargs: kk, ncol (= J*I), k_range_plevel, tracer_pc_upper, tracer
+// limiter (0 monotonic, 1 non_oscillatory, 2 non_oscillatory_posdef).
 // dargs: nudge_fac, dpmin_interior, stab_fac_limit, ap11..ap16,
 // ap21..ap26, plevel[0..kk-1].
 // Returns the cudaError_t of the launch; cudaErrorInvalidValue for kk
-// outside [3, ALE_KMAX].
+// outside [3, ALE_KMAX] or an unknown limiter.
 int ale_regrid_f32(void *const *ptrs, const int *iargs, const double *dargs,
                    void *stream) {
   return launch<float>(ptrs, iargs, dargs, stream);

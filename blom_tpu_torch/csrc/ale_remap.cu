@@ -11,7 +11,12 @@
 // per group.
 //
 // One thread per (j, i) column, neighbouring threads on neighbouring i,
-// as in ale_regrid.cu; the column arrays live in local memory.
+// as in ale_regrid.cu; the column arrays live in local memory.  The
+// tracers take the tracer limiter, u and v the velocity limiter, both
+// template parameters of the kernel: nine instantiations per type, each
+// with its groups inlined as the single-limiter kernel had them (a
+// non-inlined group function per limiter made the main path's kernel 28 %
+// slower on an H100).
 //
 // What bounds it on an H100: device-memory traffic in principle.  With
 // ntr = 0 it reads 6 interface fields (p_src, p_dst, pu_q, pv_q, pu_new,
@@ -52,7 +57,7 @@ struct Args {
   T *u_out, *v_out;
   const T *trc[ALE_MAXNT];
   T *out[ALE_MAXNT];
-  int kk, ncol, nt, pc_upper_t, pc_upper_v;
+  int kk, ncol, nt, pc_upper_t, pc_upper_v, lim_t, lim_v;
 };
 
 // full-layer integral dx*poly(1) in the plain version's order
@@ -61,9 +66,9 @@ __device__ __forceinline__ T full_term(T dxr, T c0, T c1, T c2) {
   return dxr * (c0 + T(.5) * c1 + T(1 / 3.) * c2);
 }
 
-// One group: the fields `src[f]` on interfaces `ps`, remapped onto
-// `pd`, into `dst[f]`.
-template <typename T>
+// One group: the fields `src[f]` on interfaces `ps`, reconstructed with
+// the limiter LIM and remapped onto `pd`, into `dst[f]`.
+template <int LIM, typename T>
 __device__ void remap_group(int kk, size_t n, int col, const T *ps,
                             const T *pd, const T *const *src,
                             T *const *dst, int nf, bool pc_upper) {
@@ -97,7 +102,7 @@ __device__ void remap_group(int kk, size_t n, int col, const T *ps,
       if (q < kk) tel[q] = e;
       if (q > 0) ter[q - 1] = e;
     }
-    limit_and_fit(kk, dx, tm, tel, ter, pc_upper);
+    limit_and_fit<LIM>(kk, dx, tm, tel, ter, pc_upper);
     // tel = c0, tm = c1, ter = c2
 
     bool fin = pfin;
@@ -155,19 +160,38 @@ __device__ void remap_group(int kk, size_t n, int col, const T *ps,
   }
 }
 
-template <typename T>
+template <typename T, int LT, int LV>
 __global__ void __launch_bounds__(128) ale_remap_kernel(const Args<T> a) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= a.ncol) return;
   const size_t n = (size_t)a.ncol;
-  remap_group(a.kk, n, col, a.p_src, a.p_dst, a.trc, a.out, a.nt,
-              a.pc_upper_t != 0);
+  remap_group<LT>(a.kk, n, col, a.p_src, a.p_dst, a.trc, a.out, a.nt,
+                  a.pc_upper_t != 0);
   const T *su[1] = {a.u};
   T *du[1] = {a.u_out};
-  remap_group(a.kk, n, col, a.pu_q, a.pu_new, su, du, 1, a.pc_upper_v != 0);
+  remap_group<LV>(a.kk, n, col, a.pu_q, a.pu_new, su, du, 1,
+                  a.pc_upper_v != 0);
   const T *sv[1] = {a.v};
   T *dv[1] = {a.v_out};
-  remap_group(a.kk, n, col, a.pv_q, a.pv_new, sv, dv, 1, a.pc_upper_v != 0);
+  remap_group<LV>(a.kk, n, col, a.pv_q, a.pv_new, sv, dv, 1,
+                  a.pc_upper_v != 0);
+}
+
+template <typename T, int LT>
+int launch_lt(const Args<T> &a, int blocks, int threads, cudaStream_t s) {
+  switch (a.lim_v) {
+    case LIM_MONOTONIC:
+      ale_remap_kernel<T, LT, LIM_MONOTONIC><<<blocks, threads, 0, s>>>(a);
+      break;
+    case LIM_NON_OSCILLATORY:
+      ale_remap_kernel<T, LT, LIM_NON_OSCILLATORY><<<blocks, threads, 0,
+                                                     s>>>(a);
+      break;
+    default:
+      ale_remap_kernel<T, LT, LIM_POSDEF><<<blocks, threads, 0, s>>>(a);
+      break;
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -188,7 +212,11 @@ int launch(void *const *ptrs, const int *iargs, void *stream) {
   a.nt = iargs[2];
   a.pc_upper_t = iargs[3];
   a.pc_upper_v = iargs[4];
-  if (a.kk < 3 || a.kk > ALE_KMAX || a.nt < 0 || a.nt > ALE_MAXNT)
+  a.lim_t = iargs[5];
+  a.lim_v = iargs[6];
+  if (a.kk < 3 || a.kk > ALE_KMAX || a.nt < 0 || a.nt > ALE_MAXNT
+      || a.lim_t < 0 || a.lim_t >= N_LIM || a.lim_v < 0
+      || a.lim_v >= N_LIM)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < ALE_MAXNT; ++t) {
     a.trc[t] = t < a.nt ? (const T *)ptrs[10 + t] : nullptr;
@@ -196,8 +224,15 @@ int launch(void *const *ptrs, const int *iargs, void *stream) {
   }
   const int threads = 128;
   const int blocks = (a.ncol + threads - 1) / threads;
-  ale_remap_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (a.lim_t) {
+    case LIM_MONOTONIC:
+      return launch_lt<T, LIM_MONOTONIC>(a, blocks, threads, s);
+    case LIM_NON_OSCILLATORY:
+      return launch_lt<T, LIM_NON_OSCILLATORY>(a, blocks, threads, s);
+    default:
+      return launch_lt<T, LIM_POSDEF>(a, blocks, threads, s);
+  }
 }
 
 }  // namespace
@@ -206,9 +241,11 @@ extern "C" {
 
 // ptrs: p_src, pu_q, u, pv_q, v, p_dst, pu_new, pv_new, u_out, v_out,
 // then the nt tracer means and the nt outputs.
-// iargs: kk, ncol (= J*I), nt, tracer_pc_upper, velocity_pc_upper.
-// Returns the cudaError_t of the launch; cudaErrorInvalidValue for kk
-// outside [3, ALE_KMAX] or nt above ALE_MAXNT.
+// iargs: kk, ncol (= J*I), nt, tracer_pc_upper, velocity_pc_upper,
+// tracer limiter, velocity limiter (0 monotonic, 1 non_oscillatory,
+// 2 non_oscillatory_posdef).  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue for kk outside [3, ALE_KMAX], nt above ALE_MAXNT
+// or an unknown limiter.
 int ale_remap_f32(void *const *ptrs, const int *iargs, void *stream) {
   return launch<float>(ptrs, iargs, stream);
 }

@@ -1,4 +1,6 @@
-// CPPM transport sweep (full compatibility, non-oscillatory limiting).
+// CPPM transport sweep, in its four variants: full or partial
+// compatibility of the tracer edges with the thickness parabola,
+// non-oscillatory or monotonic limiting.
 //
 // Replaces the Pallas TPU kernel blom_tpu/dynamics/cppm_pallas.py
 // (_sweep_chunk / _make_kernel, which runs cppm._cppm_sweep_body on VMEM
@@ -31,9 +33,21 @@
 // stencil class is a switch, so the LU solve of that class alone runs
 // (the plain version evaluates all classes and selects one).
 //
+// The variant is a template parameter (FULL: compatible tracer edges
+// from the per-cell LU solves, else edges from the thickness
+// coefficients; MONO: monotonic limiting everywhere, else
+// non-oscillatory limiting where the curvature changes sign, with the
+// positivity fixes), so each instantiation carries only its own stages:
+// the monotonic ones skip both extrema detectors and the positivity
+// fixes, the partial ones the LU solves.  Every stencil reaches at most
+// two cells along the line, in all four variants, and a block holds the
+// whole line, so no variant needs a halo.
+//
 // Shifts zero-fill at a closed end and wrap on a periodic axis, exactly
 // as the plain version's _sh.  Build with -fmad=false so that each
-// operation rounds as the plain version's separate tensor operations do.
+// operation rounds as the plain version's separate tensor operations do;
+// a division by a constant is a product with its reciprocal, as PyTorch
+// computes `x / 3.` on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -295,10 +309,38 @@ __device__ __forceinline__ T minmod3(T sl, T sr, T sc) {
   return sgn(sc) * fmn(fmn(fab(sl), fab(sr)), fab(sc));
 }
 
+// Minmod-clamped edge values el2, er2 of a cell with mean m, neighbour
+// means m_m, m_p and raw edges el, er (the slope clamp every limiter
+// starts from); false where the cell has no monotone slope, and then the
+// limiters take m at both edges
+template <typename T>
+__device__ __forceinline__ bool edge_clamp(T m, T m_m, T m_p, T ssc, T scc,
+                                           T el, T er, T &el2, T &er2) {
+  const T sl = ssc * (m - m_m), sr = ssc * (m_p - m);
+  if (!(sl * sr > T(0))) return false;
+  const T sc = minmod3(sl, sr, scc * (m_p - m_m));
+  el2 = ((m_m - el) * (m - el) > T(0))
+      ? m - sgn(sc) * fmn(T(.5) * fab(sc), fab(el - m)) : el;
+  er2 = ((m_p - er) * (m - er) > T(0))
+      ? m + sgn(sc) * fmn(T(.5) * fab(sc), fab(er - m)) : er;
+  return true;
+}
+
+// the overshoot limit of a parabola's interior extremum (PPM form)
+template <typename T>
+__device__ __forceinline__ void extremum_limit(T m, T el2, T er2, T &el,
+                                               T &er) {
+  const T d = er2 - el2;
+  const T q = d * (T(2) * m - el2 - er2);
+  const T r = d * d * (T(1) / T(3));
+  el = q > r ? T(3) * m - T(2) * er2 : el2;
+  er = -r > q ? T(3) * m - T(2) * el2 : er2;
+}
+
 // at most 64 registers, so four 256-thread blocks fit on an SM: the
 // phases wait on global loads, and two blocks (at the 90 registers ptxas
 // chooses unbounded) leave too few warps to hide that latency
-template <typename T>
+template <typename T, bool FULL, bool MONO>
 __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   extern __shared__ unsigned char smem_raw[];
   const int k = blockIdx.y;
@@ -337,7 +379,7 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   END_CELLS
   __syncthreads();
 
-  // ---- 2: 4th-order edge estimate (h_edges_nosc, mod_cppm.F90:361-380)
+  // ---- 2: 4th-order edge estimate (h_edges_*, mod_cppm.F90:361-380)
   FOR_CELLS
     const T *hv = a.hevc + ix;
     L.s(A_TMP1, p) = hv[0] * L.so(A_HM, p, -2) + hv[JI] * L.so(A_HM, p, -1)
@@ -345,51 +387,50 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   END_CELLS
   __syncthreads();
 
-  // ---- 3: second-derivative extrema detector
-  FOR_CELLS
-    const T hm = L.s(A_HM, p);
-    const T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
-    L.s(A_TMP2, p) = a.d2m[ix] * (hel - T(2) * hm + her);
-  END_CELLS
-  __syncthreads();
+  // ---- 3: second-derivative extrema detector (non-oscillatory only)
+  if constexpr (!MONO) {
+    FOR_CELLS
+      const T hm = L.s(A_HM, p);
+      const T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
+      L.s(A_TMP2, p) = a.d2m[ix] * (hel - T(2) * hm + her);
+    END_CELLS
+    __syncthreads();
+  }
 
-  // ---- 4: non-oscillatory limiting + positivity of the thickness
-  // parabola (mod_cppm.F90:381-430)
+  // ---- 4: limiting, and for non-oscillatory limiting the positivity of
+  // the thickness parabola (h_edges_nosc, mod_cppm.F90:381-430;
+  // h_edges_mono, :436-488)
   FOR_CELLS
     const T hm = L.s(A_HM, p);
     T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
-    const T d2h = L.s(A_TMP2, p);
-    const bool need = (L.so(A_TMP2, p, -1) * d2h <= T(0))
-                      || (d2h * L.so(A_TMP2, p, 1) <= T(0));
+    bool need = true;
+    if constexpr (!MONO) {
+      const T d2h = L.s(A_TMP2, p);
+      need = (L.so(A_TMP2, p, -1) * d2h <= T(0))
+             || (d2h * L.so(A_TMP2, p, 1) <= T(0));
+    }
     if (need) {
-      const T hm_m = L.so(A_HM, p, -1), hm_p = L.so(A_HM, p, 1);
-      const T ssc = a.ssc[ix];
-      const T sl = ssc * (hm - hm_m), sr = ssc * (hm_p - hm);
-      if (sl * sr > T(0)) {
-        const T sc = minmod3(sl, sr, a.scc[ix] * (hm_p - hm_m));
-        const T hel2 = ((hm_m - hel) * (hm - hel) > T(0))
-            ? hm - sgn(sc) * fmn(T(.5) * fab(sc), fab(hel - hm)) : hel;
-        const T her2 = ((hm_p - her) * (hm - her) > T(0))
-            ? hm + sgn(sc) * fmn(T(.5) * fab(sc), fab(her - hm)) : her;
-        const T d = her2 - hel2;
-        const T q = d * (T(2) * hm - hel2 - her2);
-        const T r = d * d / T(3);
-        hel = q > r ? T(3) * hm - T(2) * her2 : hel2;
-        her = -r > q ? T(3) * hm - T(2) * hel2 : her2;
+      T hel2, her2;
+      if (edge_clamp(hm, L.so(A_HM, p, -1), L.so(A_HM, p, 1), a.ssc[ix],
+                     a.scc[ix], hel, her, hel2, her2)) {
+        extremum_limit(hm, hel2, her2, hel, her);
       } else {
         hel = hm;
         her = hm;
       }
     }
-    hel = fmx(hel, dpeps);
-    her = fmx(her, dpeps);
-    const T sl = T(2) * (T(3) * hm - T(2) * hel - her);
-    const T a2 = T(3) * (hel - T(2) * hm + her);
-    const T sr = sl + T(2) * a2;
-    if (sl < T(0) && sr > T(0) && (a2 * hel - T(.25) * sl * sl < a2 * dpeps)) {
-      const T qq = T(3) * hm / (T(3) * sl * sr + T(4) * a2 * a2);
-      hel = sl * sl * qq;
-      her = sr * sr * qq;
+    if constexpr (!MONO) {
+      hel = fmx(hel, dpeps);
+      her = fmx(her, dpeps);
+      const T sl = T(2) * (T(3) * hm - T(2) * hel - her);
+      const T a2 = T(3) * (hel - T(2) * hm + her);
+      const T sr = sl + T(2) * a2;
+      if (sl < T(0) && sr > T(0)
+          && (a2 * hel - T(.25) * sl * sl < a2 * dpeps)) {
+        const T qq = T(3) * hm / (T(3) * sl * sr + T(4) * a2 * a2);
+        hel = sl * sl * qq;
+        her = sr * sr * qq;
+      }
     }
     L.s(A_HEL, p) = hel;
     L.s(A_HER, p) = her;
@@ -397,14 +438,17 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   __syncthreads();
 
   // ---- 5: compatible tracer-edge coefficients (per-cell LU solve of the
-  // cell's stencil class) and the thickness edge flux
+  // cell's stencil class; full compatibility only) and the thickness
+  // edge flux
   FOR_CELLS
-    T tev[4];
-    tracer_edge_coeffs(a, L, p, a.stencil[ix], tev);
-    L.s(A_TEV0, p) = tev[0];
-    L.s(A_TEV1, p) = tev[1];
-    L.s(A_TEV2, p) = tev[2];
-    L.s(A_TEV3, p) = tev[3];
+    if constexpr (FULL) {
+      T tev[4];
+      tracer_edge_coeffs(a, L, p, a.stencil[ix], tev);
+      L.s(A_TEV0, p) = tev[0];
+      L.s(A_TEV1, p) = tev[1];
+      L.s(A_TEV2, p) = tev[2];
+      L.s(A_TEV3, p) = tev[3];
+    }
     const T ca = a.ca[k3 + ix];
     T p0, p1, p2;
     bool west;
@@ -431,90 +475,137 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
     END_CELLS
     __syncthreads();
 
-    // ---- 6b: compatible tracer edge values
+    // ---- 6b: tracer edge values: compatible (the cell's LU
+    // coefficients) or from the thickness coefficients (mod_cppm.F90:
+    // 1143-1155)
     FOR_CELLS
-      L.s(A_TMP1, p) = L.s(A_TEV0, p) * L.so(A_TM, p, -2)
-                       + L.s(A_TEV1, p) * L.so(A_TM, p, -1)
-                       + L.s(A_TEV2, p) * L.s(A_TM, p)
-                       + L.s(A_TEV3, p) * L.so(A_TM, p, 1);
+      if constexpr (FULL) {
+        L.s(A_TMP1, p) = L.s(A_TEV0, p) * L.so(A_TM, p, -2)
+                         + L.s(A_TEV1, p) * L.so(A_TM, p, -1)
+                         + L.s(A_TEV2, p) * L.s(A_TM, p)
+                         + L.s(A_TEV3, p) * L.so(A_TM, p, 1);
+      } else {
+        const T *hv = a.hevc + ix;
+        L.s(A_TMP1, p) = hv[0] * L.so(A_TM, p, -2)
+                         + hv[JI] * L.so(A_TM, p, -1)
+                         + hv[2 * JI] * L.s(A_TM, p)
+                         + hv[3 * JI] * L.so(A_TM, p, 1);
+      }
     END_CELLS
     __syncthreads();
 
-    // ---- 6c: extrema detector of the tracer parabola
-    FOR_CELLS
-      const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
-      const T qh = T(1) / (T(12) * hm - hel - her);
-      const T hf1m = T(60) * hm * qh;
-      const T hf2m = -hf1m;
-      const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
-      const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
-      L.s(A_TMP2, p) = a.d2m[ix] * (hf2m * L.s(A_TM, p) + hf2l * L.s(A_TMP1, p)
-                                    + hf2r * L.so(A_TMP1, p, 1));
-    END_CELLS
-    __syncthreads();
+    // ---- 6c: extrema detector of the tracer parabola (non-oscillatory
+    // only)
+    if constexpr (!MONO) {
+      FOR_CELLS
+        const T tm = L.s(A_TM, p);
+        const T tel = L.s(A_TMP1, p), ter = L.so(A_TMP1, p, 1);
+        if constexpr (FULL) {
+          const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p);
+          const T her = L.s(A_HER, p);
+          const T qh = T(1) / (T(12) * hm - hel - her);
+          const T hf1m = T(60) * hm * qh;
+          const T hf2m = -hf1m;
+          const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
+          const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
+          L.s(A_TMP2, p) = a.d2m[ix] * (hf2m * tm + hf2l * tel + hf2r * ter);
+        } else {
+          L.s(A_TMP2, p) = a.d2m[ix] * (tel - T(2) * tm + ter);
+        }
+      END_CELLS
+      __syncthreads();
+    }
 
     // ---- 6d: limiting, positivity and parabola coefficients
-    // (parabola_coeffs_fc_nosc, mod_cppm.F90:731-818)
+    // (parabola_coeffs_{fc,pc}_{nosc,mono}, mod_cppm.F90:731-1371)
     FOR_CELLS
-      const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
-      const T qh = T(1) / (T(12) * hm - hel - her);
-      const T hf1m = T(60) * hm * qh;
-      const T hf1l = -(T(42) * hm + T(4) * hel - T(6) * her) * qh;
-      const T hf1r = -(T(18) * hm - T(4) * hel + T(6) * her) * qh;
-      const T hf2m = -hf1m;
-      const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
-      const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
       const T tm = L.s(A_TM, p);
       T tel = L.s(A_TMP1, p), ter = L.so(A_TMP1, p, 1);
-      const T d2t = L.s(A_TMP2, p);
-      const bool need = (L.so(A_TMP2, p, -1) * d2t <= T(0))
-                        || (d2t * L.so(A_TMP2, p, 1) <= T(0));
-      if (need) {
-        const T tm_m = L.so(A_TM, p, -1), tm_p = L.so(A_TM, p, 1);
-        const T ssc = a.ssc[ix];
-        const T sl = ssc * (tm - tm_m), sr = ssc * (tm_p - tm);
-        if (sl * sr > T(0)) {
-          const T sc = minmod3(sl, sr, a.scc[ix] * (tm_p - tm_m));
-          const T tel2 = ((tm_m - tel) * (tm - tel) > T(0))
-              ? tm - sgn(sc) * fmn(T(.5) * fab(sc), fab(tel - tm)) : tel;
-          const T ter2 = ((tm_p - ter) * (tm - ter) > T(0))
-              ? tm + sgn(sc) * fmn(T(.5) * fab(sc), fab(ter - tm)) : ter;
-          const T sl2 = hf1m * tm + hf1l * tel2 + hf1r * ter2;
-          const T a2 = hf2m * tm + hf2l * tel2 + hf2r * ter2;
-          const T sr2 = sl2 + T(2) * a2;
-          const bool fix = sl2 * sr2 < T(0);
-          const bool left_fix = (ter2 - tel2) * a2 < T(0);
-          const T tel3 = (fix && left_fix)
-              ? -((hf1m + T(2) * hf2m) * tm + (hf1r + T(2) * hf2r) * ter2)
-                    / (hf1l + T(2) * hf2l)
-              : tel2;
-          const T ter3 = (fix && !left_fix)
-              ? -(hf1m * tm + hf1l * tel3) / hf1r : ter2;
-          tel = tel3;
-          ter = ter3;
-        } else {
-          tel = tm;
-          ter = tm;
-        }
+      bool need = true;
+      if constexpr (!MONO) {
+        const T d2t = L.s(A_TMP2, p);
+        need = (L.so(A_TMP2, p, -1) * d2t <= T(0))
+               || (d2t * L.so(A_TMP2, p, 1) <= T(0));
       }
-      if (t >= 1) {
-        // positivity for salinity and passive tracers
-        T tel_p = fmx(tel, T(0)), ter_p = fmx(ter, T(0));
-        const T sl3 = hf1m * tm + hf1l * tel_p + hf1r * ter_p;
-        const T a23 = hf2m * tm + hf2l * tel_p + hf2r * ter_p;
-        const T sr3 = sl3 + T(2) * a23;
-        if (sl3 < T(0) && sr3 > T(0)
-            && (a23 * tel_p - T(.25) * sl3 * sl3 < T(0))) {
-          const T qq = T(3) * tm / (T(3) * sl3 * sr3 + T(4) * a23 * a23);
-          tel_p = sl3 * sl3 * qq;
-          ter_p = sr3 * sr3 * qq;
+      if constexpr (FULL) {
+        const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
+        const T qh = T(1) / (T(12) * hm - hel - her);
+        const T hf1m = T(60) * hm * qh;
+        const T hf1l = -(T(42) * hm + T(4) * hel - T(6) * her) * qh;
+        const T hf1r = -(T(18) * hm - T(4) * hel + T(6) * her) * qh;
+        const T hf2m = -hf1m;
+        const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
+        const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
+        if (need) {
+          T tel2, ter2;
+          if (edge_clamp(tm, L.so(A_TM, p, -1), L.so(A_TM, p, 1),
+                         a.ssc[ix], a.scc[ix], tel, ter, tel2, ter2)) {
+            const T sl2 = hf1m * tm + hf1l * tel2 + hf1r * ter2;
+            const T a2 = hf2m * tm + hf2l * tel2 + hf2r * ter2;
+            const T sr2 = sl2 + T(2) * a2;
+            const bool fix = sl2 * sr2 < T(0);
+            const bool left_fix = (ter2 - tel2) * a2 < T(0);
+            const T tel3 = (fix && left_fix)
+                ? -((hf1m + T(2) * hf2m) * tm + (hf1r + T(2) * hf2r) * ter2)
+                      / (hf1l + T(2) * hf2l)
+                : tel2;
+            const T ter3 = (fix && !left_fix)
+                ? -(hf1m * tm + hf1l * tel3) / hf1r : ter2;
+            tel = tel3;
+            ter = ter3;
+          } else {
+            tel = tm;
+            ter = tm;
+          }
         }
-        tel = tel_p;
-        ter = ter_p;
+        if (!MONO && t >= 1) {
+          // positivity for salinity and passive tracers
+          T tel_p = fmx(tel, T(0)), ter_p = fmx(ter, T(0));
+          const T sl3 = hf1m * tm + hf1l * tel_p + hf1r * ter_p;
+          const T a23 = hf2m * tm + hf2l * tel_p + hf2r * ter_p;
+          const T sr3 = sl3 + T(2) * a23;
+          if (sl3 < T(0) && sr3 > T(0)
+              && (a23 * tel_p - T(.25) * sl3 * sl3 < T(0))) {
+            const T qq = T(3) * tm / (T(3) * sl3 * sr3 + T(4) * a23 * a23);
+            tel_p = sl3 * sl3 * qq;
+            ter_p = sr3 * sr3 * qq;
+          }
+          tel = tel_p;
+          ter = ter_p;
+        }
+        L.s(A_TPC0, p) = tel;
+        L.s(A_TPC1, p) = hf1m * tm + hf1l * tel + hf1r * ter;
+        L.s(A_TPC2, p) = hf2m * tm + hf2l * tel + hf2r * ter;
+      } else {
+        if (need) {
+          T tel2, ter2;
+          if (edge_clamp(tm, L.so(A_TM, p, -1), L.so(A_TM, p, 1),
+                         a.ssc[ix], a.scc[ix], tel, ter, tel2, ter2)) {
+            extremum_limit(tm, tel2, ter2, tel, ter);
+          } else {
+            tel = tm;
+            ter = tm;
+          }
+        }
+        if (!MONO && t >= 1) {
+          // positivity for salinity and passive tracers, PPM form
+          T tel_p = fmx(tel, T(0)), ter_p = fmx(ter, T(0));
+          const T sl3 = T(2) * (T(3) * tm - T(2) * tel_p - ter_p);
+          const T a23 = T(3) * (tel_p - T(2) * tm + ter_p);
+          const T sr3 = sl3 + T(2) * a23;
+          if (sl3 < T(0) && sr3 > T(0)
+              && (a23 * tel_p - T(.25) * sl3 * sl3 < T(0))) {
+            const T qq = T(3) * tm / (T(3) * sl3 * sr3 + T(4) * a23 * a23);
+            tel_p = sl3 * sl3 * qq;
+            ter_p = sr3 * sr3 * qq;
+          }
+          tel = tel_p;
+          ter = ter_p;
+        }
+        L.s(A_TPC0, p) = tel;
+        L.s(A_TPC1, p) = T(6) * tm - T(4) * tel - T(2) * ter;
+        L.s(A_TPC2, p) = T(3) * (tel - T(2) * tm + ter);
       }
-      L.s(A_TPC0, p) = tel;
-      L.s(A_TPC1, p) = hf1m * tm + hf1l * tel + hf1r * ter;
-      L.s(A_TPC2, p) = hf2m * tm + hf2l * tel + hf2r * ter;
     END_CELLS
     __syncthreads();
 
@@ -545,6 +636,19 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   }
 #undef FOR_CELLS
 #undef END_CELLS
+}
+
+template <typename T, bool FULL, bool MONO>
+int launch_variant(const Args<T> &a, int threads, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cppm_sweep_kernel<T, FULL, MONO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nlines = a.ax == -1 ? a.J : a.I;
+  dim3 grid((nlines + a.nw - 1) / a.nw, a.kk);
+  cppm_sweep_kernel<T, FULL, MONO><<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -580,8 +684,8 @@ int launch(void *const *ptrs, const int *iargs, void *stream) {
   a.db3 = iargs[7];
   a.ai3 = iargs[8];
   const int threads = iargs[9];
+  const int full = iargs[10], mono = iargs[11];
   const int N = a.ax == -1 ? a.I : a.J;
-  const int nlines = a.ax == -1 ? a.J : a.I;
   // take fewer lines per block than asked when they do not fit in the
   // device's shared memory (the j-sweep at large J, in f64 first)
   int dev = 0, smem_max = 0;
@@ -594,13 +698,12 @@ int launch(void *const *ptrs, const int *iargs, void *stream) {
   while (a.nw > 1 && line_bytes * a.nw > (size_t)smem_max) a.nw /= 2;
   if (line_bytes > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   const size_t smem = line_bytes * a.nw;
-  err = cudaFuncSetAttribute(
-      cppm_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((nlines + a.nw - 1) / a.nw, a.kk);
-  cppm_sweep_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (full)
+    return mono ? launch_variant<T, true, true>(a, threads, smem, s)
+                : launch_variant<T, true, false>(a, threads, smem, s);
+  return mono ? launch_variant<T, false, true>(a, threads, smem, s)
+              : launch_variant<T, false, false>(a, threads, smem, s);
 }
 
 }  // namespace
@@ -610,7 +713,9 @@ extern "C" {
 // ptrs: hm, tm, ca, db, du, dl, ai, div (or null), stencil, hevc, ssc,
 // scc, d2m, tmc0, tmcl, tmcr, hn, tmn, hf, htf.
 // iargs: kk, J, I, nt, ax, periodic, nw (most lines per block), db3, ai3,
-// threads.  Returns the cudaError_t of the launch; cudaErrorInvalidValue
+// threads, full (compatibility 'full', else 'partial'), mono (limiting
+// 'monotonic', else 'non_oscillatory').  Returns the cudaError_t of the
+// launch; cudaErrorInvalidValue
 // when one line does not fit in shared memory (N above 3874 in f32, 1937
 // in f64, at the H100's 227 KB per block).
 int cppm_sweep_f32(void *const *ptrs, const int *iargs, void *stream) {

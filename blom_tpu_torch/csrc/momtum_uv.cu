@@ -1,4 +1,6 @@
-// Momentum-equation stencil core, enstrophy-conserving scheme.
+// Momentum-equation stencil core, in the three vorticity schemes of
+// mommth: enstrophy-conserving (enscon), energy-conserving (enecon) and
+// energy-conserving with upwind-selected mass fluxes (enedis).
 //
 // Replaces the Pallas TPU kernel blom_tpu/dynamics/momtum_pallas.py
 // (momtum_uv_pallas / _make_kernel, which runs momtum._uv_body on
@@ -15,11 +17,16 @@
 //   2. dl2u, dl2v, potential vorticity, defor1, defor2 and kinetic energy;
 //   3. the viscosities, momentum fluxes, Coriolis, bottom stress and
 //      u_new, v_new.
-// The eleven staged fields go to a scratch tensor that the wrapper
-// allocates.  Everything else (side-wall weights, auxiliary velocities,
-// viscosities, the longitudinal fluxes) is recomputed where it is read,
-// by functions that return zero past a closed edge and wrap a periodic
-// one, exactly as the plain version's shifted fields do.
+// The eleven staged fields (fifteen for enedis, whose minimum and
+// maximum mass fluxes at u and v points stage 2 computes once, rather
+// than stage 3 at four neighbours each) go to a scratch tensor that the
+// wrapper allocates.  The scheme is a template parameter of stages 2 and
+// 3 (MOM_ENSCON, MOM_ENECON, MOM_ENEDIS); it changes only the Coriolis
+// terms and, for enedis, the staged flux bounds.  Everything else
+// (side-wall weights, auxiliary velocities, viscosities, the longitudinal
+// fluxes) is recomputed where it is read, by functions that return zero
+// past a closed edge and wrap a periodic one, exactly as the plain
+// version's shifted fields do.
 //
 // What bounds it on an H100: device-memory traffic.  The inputs are 17
 // (k, j, i) fields, 12 (j, i) fields and 21 metric planes, the outputs 2
@@ -36,7 +43,11 @@
 namespace {
 
 enum { K_UTOTM, K_VTOTM, K_UTOTN, K_VTOTN, K_DPMX,
-       K_DL2U, K_DL2V, K_POTVOR, K_DEFOR1, K_DEFOR2, K_KE, N_SCRATCH };
+       K_DL2U, K_DL2V, K_POTVOR, K_DEFOR1, K_DEFOR2, K_KE, N_SCRATCH,
+       // enedis only
+       K_UHMIN = N_SCRATCH, K_UHMAX, K_VHMIN, K_VHMAX, N_SCRATCH_ENEDIS };
+
+enum { MOM_ENSCON, MOM_ENECON, MOM_ENEDIS };
 
 enum { F_U_M, F_U_N, F_V_M, F_V_N, F_DP_M, F_DPU_M, F_DPV_M, F_P_LO, F_P_HI,
        F_PU_LO, F_PU_HI, F_PV_LO, F_PV_HI, F_STRESS_U, F_STRESS_V, F_PGF_U,
@@ -60,6 +71,11 @@ struct Args {
   T mdv2hi, mdv2lo, mdv4hi, mdv4lo, vsc2hi, vsc2lo, vsc4hi, vsc4lo;
   int kk, J, I, periodic_i, periodic_j;
 };
+
+template <typename T>
+__device__ __forceinline__ T fab(T x) {
+  return x < T(0) ? -x : x;
+}
 
 template <typename T>
 __device__ __forceinline__ T fmn(T a, T b) {
@@ -376,6 +392,36 @@ struct Body {
   }
 };
 
+// enedis: the minimum and maximum of the centred mass flux hc and the
+// upstream-limited flux hm, hc first pulled toward hm (hminmax,
+// mod_momtum.F90:664-712); the constants are the plain version's
+// (1 - c2*3 = -.5, 1 - c3*slp = 0)
+template <typename T>
+__device__ __forceinline__ void hminmax(T hc, T hm, T &lo, T &hi) {
+  const T hm2 = fab(hc) < T(.1) * fab(hm) ? T(10) * hc : hm;
+  T hc2 = hc;
+  if (fab(hc) > T(.25) * fab(hm2)) {
+    if (fab(hc) < T(.5) * fab(hm2))
+      hc2 = T(3) * hc + T(-.5) * hm2;
+    else if (fab(hc) <= T(2) * fab(hm2))
+      hc2 = hm2;
+    else
+      hc2 = T(.5) * hc + T(0) * hm2;
+  }
+  lo = fmn(hc2, hm2);
+  hi = fmx(hc2, hm2);
+}
+
+// enedis: pv times the flux bound upstream of the advecting velocity
+// sg, the mean of both bounds where pv*sg is zero
+template <typename T>
+__device__ __forceinline__ T upw(T pv, T sg, T hmx, T hmn, bool flip) {
+  const T s = pv * sg;
+  const T sel = s == T(0) ? T(.5) * (hmx + hmn)
+                          : (((s < T(0)) != flip) ? hmx : hmn);
+  return pv * sel;
+}
+
 template <typename T>
 __device__ __forceinline__ bool point(const Args<T> &a, int &k, int &j,
                                       int &i) {
@@ -401,8 +447,9 @@ __global__ void momtum_stage1(Args<T> a) {
   S[K_DPMX * NK + o] = b.dpmx_at(j, i);
 }
 
-// stage 2: dl2u, dl2v, potvor, defor1, defor2, ke
-template <typename T>
+// stage 2: dl2u, dl2v, potvor, defor1, defor2, ke; for enedis the flux
+// bounds
+template <typename T, int MOM>
 __global__ void momtum_stage2(Args<T> a) {
   int k, j, i;
   if (!point(a, k, j, i)) return;
@@ -428,10 +475,22 @@ __global__ void momtum_stage2(Args<T> a) {
   S[K_KE * NK + o] = T(.25) * (b.ke_term(j, i) + b.ke_term(j, i + 1)
                                + b.kv_term(j, i) + b.kv_term(j + 1, i))
                      * b.G(G_SCP2I, j, i);
+  if constexpr (MOM == MOM_ENEDIS) {
+    const T dp = b.F(F_DP_M, j, i);
+    T lo, hi;
+    hminmax(T(.5) * b.S(K_UTOTM, j, i) * (dp + b.Fo(F_DP_M, j, i - 1)),
+            b.uflux0(j, i), lo, hi);
+    S[K_UHMIN * NK + o] = lo;
+    S[K_UHMAX * NK + o] = hi;
+    hminmax(T(.5) * b.S(K_VTOTM, j, i) * (dp + b.Fo(F_DP_M, j - 1, i)),
+            b.vflux0(j, i), lo, hi);
+    S[K_VHMIN * NK + o] = lo;
+    S[K_VHMAX * NK + o] = hi;
+  }
 }
 
 // stage 3: fluxes, Coriolis, bottom stress and the update (:838-1152)
-template <typename T>
+template <typename T, int MOM>
 __global__ void momtum_stage3(Args<T> a) {
   int k, j, i;
   if (!point(a, k, j, i)) return;
@@ -488,9 +547,27 @@ __global__ void momtum_stage3(Args<T> a) {
                    / fmx(b.F(F_DPU_M, j, i), onemm);
     const T botstr = -utn * qbot / (T(1) + delt1 * qbot);
 
-    const T cau = T(.125) * (b.vflux0(j, i) + b.vflux0(j + 1, i)
-                             + b.vflux0(j, i - 1) + b.vflux0(j + 1, i - 1))
-                  * (potvor + b.So(K_POTVOR, j + 1, i)) * iu;
+    // Coriolis term (mod_momtum.F90:719-784)
+    T cau;
+    if constexpr (MOM == MOM_ENSCON) {
+      cau = T(.125) * (b.vflux0(j, i) + b.vflux0(j + 1, i)
+                       + b.vflux0(j, i - 1) + b.vflux0(j + 1, i - 1))
+            * (potvor + b.So(K_POTVOR, j + 1, i)) * iu;
+    } else if constexpr (MOM == MOM_ENECON) {
+      cau = T(.25) * ((b.vflux0(j, i) + b.vflux0(j, i - 1)) * potvor
+                      + (b.vflux0(j + 1, i) + b.vflux0(j + 1, i - 1))
+                        * b.So(K_POTVOR, j + 1, i)) * iu;
+    } else {
+      const T utm = b.S(K_UTOTM, j, i);
+      const T t1 = upw(b.So(K_POTVOR, j + 1, i), utm,
+                       b.So(K_VHMAX, j + 1, i) + b.So(K_VHMAX, j + 1, i - 1),
+                       b.So(K_VHMIN, j + 1, i) + b.So(K_VHMIN, j + 1, i - 1),
+                       false);
+      const T t2 = upw(potvor, utm,
+                       b.S(K_VHMAX, j, i) + b.So(K_VHMAX, j, i - 1),
+                       b.S(K_VHMIN, j, i) + b.So(K_VHMIN, j, i - 1), false);
+      cau = T(.25) * (t1 + t2) * iu;
+    }
 
     a.u_new[o] = (b.F(F_U_N, j, i) + delt1 * (
         -b.G(G_SCUXI, j, i) * (-b.F(F_PGF_U, j, i) + b.F(F_STRESS_U, j, i)
@@ -544,9 +621,26 @@ __global__ void momtum_stage3(Args<T> a) {
                    / fmx(b.F(F_DPV_M, j, i), onemm);
     const T botstr = -vtn * qbot / (T(1) + delt1 * qbot);
 
-    const T cav = T(-.125) * (b.uflux0(j, i) + b.uflux0(j, i + 1)
-                              + b.uflux0(j - 1, i) + b.uflux0(j - 1, i + 1))
-                  * (potvor + b.So(K_POTVOR, j, i + 1)) * iv;
+    T cav;
+    if constexpr (MOM == MOM_ENSCON) {
+      cav = T(-.125) * (b.uflux0(j, i) + b.uflux0(j, i + 1)
+                        + b.uflux0(j - 1, i) + b.uflux0(j - 1, i + 1))
+            * (potvor + b.So(K_POTVOR, j, i + 1)) * iv;
+    } else if constexpr (MOM == MOM_ENECON) {
+      cav = T(-.25) * ((b.uflux0(j, i) + b.uflux0(j - 1, i)) * potvor
+                       + (b.uflux0(j, i + 1) + b.uflux0(j - 1, i + 1))
+                         * b.So(K_POTVOR, j, i + 1)) * iv;
+    } else {
+      const T vtm = b.S(K_VTOTM, j, i);
+      const T t1 = upw(b.So(K_POTVOR, j, i + 1), vtm,
+                       b.So(K_UHMAX, j, i + 1) + b.So(K_UHMAX, j - 1, i + 1),
+                       b.So(K_UHMIN, j, i + 1) + b.So(K_UHMIN, j - 1, i + 1),
+                       true);
+      const T t2 = upw(potvor, vtm,
+                       b.S(K_UHMAX, j, i) + b.So(K_UHMAX, j - 1, i),
+                       b.S(K_UHMIN, j, i) + b.So(K_UHMIN, j - 1, i), true);
+      cav = T(-.25) * (t1 + t2) * iv;
+    }
 
     a.v_new[o] = (b.F(F_V_N, j, i) + delt1 * (
         -b.G(G_SCVYI, j, i) * (-b.F(F_PGF_V, j, i) + b.F(F_STRESS_V, j, i)
@@ -555,6 +649,18 @@ __global__ void momtum_stage3(Args<T> a) {
         - (b.vflux1(j, i) - b.vflux1(j - 1, i) + vflux3 - vflux2)
           / (b.G(G_SCV2, j, i) * fmx(b.F(F_DPV_M, j, i), onemm)))) * iv;
   }
+}
+
+template <typename T, int MOM>
+int launch_stage(const Args<T> &a, int stage, dim3 grid, int threads,
+                 cudaStream_t s) {
+  switch (stage) {
+    case 1: momtum_stage1<T><<<grid, threads, 0, s>>>(a); break;
+    case 2: momtum_stage2<T, MOM><<<grid, threads, 0, s>>>(a); break;
+    case 3: momtum_stage3<T, MOM><<<grid, threads, 0, s>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -584,15 +690,19 @@ int launch(void *const *ptrs, const double *dargs, const int *iargs,
   a.periodic_i = iargs[3];
   a.periodic_j = iargs[4];
   const int threads = iargs[5];
+  const int scheme = iargs[6];
   dim3 grid((a.I + threads - 1) / threads, a.J, a.kk);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (stage) {
-    case 1: momtum_stage1<T><<<grid, threads, 0, s>>>(a); break;
-    case 2: momtum_stage2<T><<<grid, threads, 0, s>>>(a); break;
-    case 3: momtum_stage3<T><<<grid, threads, 0, s>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
+  switch (scheme) {
+    case MOM_ENSCON:
+      return launch_stage<T, MOM_ENSCON>(a, stage, grid, threads, s);
+    case MOM_ENECON:
+      return launch_stage<T, MOM_ENECON>(a, stage, grid, threads, s);
+    case MOM_ENEDIS:
+      return launch_stage<T, MOM_ENEDIS>(a, stage, grid, threads, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -601,10 +711,11 @@ extern "C" {
 
 // Launches one stage (1, 2 or 3) of the core; the stages run in order on
 // one stream.  ptrs: the 17 MomtumKIn fields, the 12 Momtum2DIn fields,
-// the 21 grid planes (in the order of the enums above), scratch (11, kk,
-// J, I), u_new, v_new.  dargs: tsfac, delt1, mdv2hi, mdv2lo, mdv4hi,
-// mdv4lo, vsc2hi, vsc2lo, vsc4hi, vsc4lo.  iargs: kk, J, I, periodic_i,
-// periodic_j, threads.  Returns the cudaError_t of the launch.
+// the 21 grid planes (in the order of the enums above), scratch
+// (momtum_scratch_fields(scheme), kk, J, I), u_new, v_new.  dargs: tsfac,
+// delt1, mdv2hi, mdv2lo, mdv4hi, mdv4lo, vsc2hi, vsc2lo, vsc4hi, vsc4lo.
+// iargs: kk, J, I, periodic_i, periodic_j, threads, scheme (0 enscon,
+// 1 enecon, 2 enedis).  Returns the cudaError_t of the launch.
 int momtum_uv_f32(void *const *ptrs, const double *dargs, const int *iargs,
                   int stage, void *stream) {
   return launch<float>(ptrs, dargs, iargs, stage, stream);
@@ -615,6 +726,8 @@ int momtum_uv_f64(void *const *ptrs, const double *dargs, const int *iargs,
   return launch<double>(ptrs, dargs, iargs, stage, stream);
 }
 
-int momtum_scratch_fields() { return N_SCRATCH; }
+int momtum_scratch_fields(int scheme) {
+  return scheme == MOM_ENEDIS ? N_SCRATCH_ENEDIS : N_SCRATCH;
+}
 
 }

@@ -1,9 +1,14 @@
 // PPM reconstruction of one column, shared by the ALE kernels
 // (ale_regrid.cu, ale_remap.cu).
 //
-// Plain version: blom_tpu_torch/ops/hor3map.py, ppm_reconstruct with
-// limiting='non_oscillatory' (edge4_weights, _edge4, _limit_nosc,
-// _limit_boundary, the piecewise-constant mask, the coefficients).  Each
+// Plain version: blom_tpu_torch/ops/hor3map.py, ppm_reconstruct with its
+// three limiters (edge4_weights, _edge4, _limit_mono / _limit_nosc,
+// _limit_boundary, _limit_posdef, the piecewise-constant mask, the
+// coefficients).  The limiter is a template parameter of limit_and_fit:
+// 'monotonic' applies the slope clamp and the extremum limit at every
+// interior cell, 'non_oscillatory' only where the curvature changes
+// sign, and 'non_oscillatory_posdef' adds the positive-definite fix of
+// every cell after the boundary cells.  Each
 // expression below is that code's, with its operation order, written for
 // one column held in per-thread arrays.  Where the plain version computes
 // several branches and selects one with `where` (the three edge stencils,
@@ -27,6 +32,9 @@
 #define ALE_KMAX 64
 
 namespace ale {
+
+// the limiters, in the order of ale_cuda.LIMITERS
+enum { LIM_MONOTONIC, LIM_NON_OSCILLATORY, LIM_POSDEF, N_LIM };
 
 constexpr double kHeps = 1.e-11;   // hor3map.heps
 constexpr double kEpsilp = 1.e-12; // constants.epsilp
@@ -165,18 +173,21 @@ __device__ __forceinline__ T edge_value(const T *tm, int kk, int q, T w1,
          w3 * tm[clampk(q, kk)] + w4 * tm[clampk(q + 1, kk)];
 }
 
-// Non-oscillatory limiting, boundary cells, the piecewise-constant mask
-// and the parabola coefficients, in place: on entry tm holds the cell
-// means and tel/ter the raw edge values of each cell; on exit tel holds
-// c0, tm holds c1 and ter holds c2.  dx is the thickness plus heps.
-template <typename T>
+// Limiting (LIM), boundary cells, the piecewise-constant mask and the
+// parabola coefficients, in place: on entry tm holds the cell means and
+// tel/ter the raw edge values of each cell; on exit tel holds c0, tm
+// holds c1 and ter holds c2.  dx is the thickness plus heps.
+template <int LIM, typename T>
 __device__ __forceinline__ void limit_and_fit(int kk, const T *dx, T *tm,
                                               T *tel, T *ter,
                                               bool pc_upper) {
   const T rcp3 = T(1) / T(3);
-  // cells whose curvature changes sign against a neighbour (_limit_nosc)
-  uint64_t need = 0;
-  {
+  // the cells the slope clamp and the extremum limit act on: every one
+  // (_limit_mono), or those whose curvature changes sign against a
+  // neighbour (_limit_nosc)
+  uint64_t need = ~(uint64_t)0;
+  if constexpr (LIM != LIM_MONOTONIC) {
+    need = 0;
     T d2m = tel[0] - T(2) * tm[0] + ter[0];
     T d2 = d2m;
     for (int k = 0; k < kk; ++k) {
@@ -266,6 +277,26 @@ __device__ __forceinline__ void limit_and_fit(int kk, const T *dx, T *tm,
     ter[0] = uer0;
     tel[b] = uel1;
     ter[b] = uer1;
+  }
+  // positive-definite parabolas, every cell (_limit_posdef)
+  if constexpr (LIM == LIM_POSDEF) {
+    for (int k = 0; k < kk; ++k) {
+      const T tmk = tm[k];
+      const T min_u_0 = fmn(tmk, T(0));
+      const T l = fmx(tel[k], min_u_0), r = fmx(ter[k], min_u_0);
+      const T sl = T(2) * (T(3) * tmk - T(2) * l - r);
+      const T a2 = T(3) * (l - T(2) * tmk + r);
+      const T sr = sl + T(2) * a2;
+      if (sl < T(0) && sr > T(0)
+          && (a2 * l - T(.25) * sl * sl < a2 * min_u_0)) {
+        const T q = T(3) * tmk / safe(T(3) * sl * sr + T(4) * a2 * a2);
+        tel[k] = sl * sl * q;
+        ter[k] = sr * sr * q;
+      } else {
+        tel[k] = l;
+        ter[k] = r;
+      }
+    }
   }
   // piecewise-constant cells, then the coefficients
   for (int k = 0; k < kk; ++k) {

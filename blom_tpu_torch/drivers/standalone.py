@@ -1,9 +1,10 @@
 """Standalone model driver.
 
-Counterpart of `build_fuk95` and `run` in
+Counterpart of `build_fuk95`, `build_channel` and `run` in
 `blom_tpu/drivers/standalone.py` (BLOM's drivers/nocoupler/blom.F:20-67):
-build the fuk95 configuration, initialize it and integrate the step
-loop.  Runs on the card unless the caller passes another device."""
+build the fuk95 or the channel configuration, initialize it and
+integrate the step loop.  Runs on the card unless the caller passes
+another device."""
 
 from __future__ import annotations
 
@@ -38,6 +39,37 @@ class Model:
     swabs: SwabsFields
 
 
+def _device(device):
+    """The device an entry point builds on: CUDA unless the caller names
+    one; without CUDA that is an error, not a fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'CUDA is not available; pass device="cpu" to run the '
+                'plain PyTorch path on the CPU')
+        device = 'cuda'
+    return device
+
+
+def _assemble(grid, e, par, clock, state, forcing, dtype, device) -> Model:
+    """The model around a configuration's grid, state and forcing: the
+    CPPM coefficients of both sweep axes, zero diffusion fields and
+    Jerlov type-3 shortwave absorption."""
+    kdm = grid.kk
+    ip_np = grid.ip.cpu().double().numpy()
+    coeffs_i = cppm_mod.init_cppm_coeffs(
+        ip_np, grid.scpx.cpu().double().numpy(), axis=-1,
+        periodic=grid.periodic_i, dtype=dtype, device=device)
+    coeffs_j = cppm_mod.init_cppm_coeffs(
+        ip_np, grid.scpy.cpu().double().numpy(), axis=-2,
+        periodic=grid.periodic_j, dtype=dtype, device=device)
+    dfl = zero_diffusion_fields(kdm, grid.shape, dtype, device)
+    swabs = init_swabs(grid.shape, 'jerlov', 3, dtype, device)
+    return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
+                 coeffs_j=coeffs_j, clock=clock, state=state,
+                 forcing=forcing, dfl=dfl, swabs=swabs)
+
+
 def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                 device=None) -> Model:
     """Assemble the fuk95 experiment (tests/fuk95/limits deck values).
@@ -51,12 +83,7 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     CUDA is missing."""
     from ..configs import fuk95 as cfg
 
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'CUDA is not available; pass device="cpu" to run the '
-                'plain PyTorch path on the CPU')
-        device = 'cuda'
+    device = _device(device)
     itdm = itdm or cfg.ITDM
     jtdm = jtdm or cfg.JTDM
     kdm = kdm or cfg.KDM
@@ -81,21 +108,52 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
         barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
         pgfmth='dynamic enthalpy', vcoord_isopyc=False,
         ale=make_ale_params(kdm), itriag=-1, itrbgc=-1)
+    forcing = zero_forcing(kdm, grid.shape, dtype, device)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 
-    ip_np = grid.ip.cpu().double().numpy()
-    coeffs_i = cppm_mod.init_cppm_coeffs(
-        ip_np, grid.scpx.cpu().double().numpy(), axis=-1,
-        periodic=grid.periodic_i, dtype=dtype, device=device)
-    coeffs_j = cppm_mod.init_cppm_coeffs(
-        ip_np, grid.scpy.cpu().double().numpy(), axis=-2,
-        periodic=grid.periodic_j, dtype=dtype, device=device)
+
+def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
+                  ztx0=-.05, baclin=300., batrop=10., device=None) -> Model:
+    """Assemble the channel experiment (channel/mod_channel.F90), as
+    blom_tpu's build_channel does: the 208x512x30 grid of
+    `configs/channel.py` (read when called), the ALE regrid/remap, the
+    vertical mixing and lateral diffusivity defaults, coastal
+    wave-breaking damping, and a constant zonal wind stress `ztx0`
+    masked at u and v points.  `device` defaults to CUDA and raises when
+    CUDA is missing."""
+    from ..configs import channel as cfg
+
+    device = _device(device)
+    itdm = itdm or cfg.ITDM
+    jtdm = jtdm or cfg.JTDM
+    kdm = kdm or cfg.KDM
+
+    clock = modeltime.init_timevars('channel', baclin, batrop,
+                                    20000101, 20000101)
+    grid = cfg.make_grid(baclin, itdm, jtdm, kdm, dtype=dtype, device=device)
+    e = eos.init_eos(pref=0., expcnf='channel')
+
+    z, sigmar, saln, phi = cfg.initial_profiles(grid, itdm, jtdm, kdm)
+    temp = eos.tofsig(e, torch.from_numpy(sigmar),
+                      torch.from_numpy(saln)).numpy()
+    state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
+                            sigmar=sigmar, dtype=dtype, ntr=0)
+
+    par = StepParams(
+        baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
+        momtum=MomtumParams(vsc2hi=.2, vsc2lo=.2, cbar=.05, cb=.002,
+                            mommth='enscon'),
+        barotp=BarotpParams(cwbdts=5.e-5, cwbdls=25., mommth='enscon'),
+        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
+        ale=make_ale_params(kdm))
 
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
-    dfl = zero_diffusion_fields(kdm, grid.shape, dtype, device)
-    swabs = init_swabs(grid.shape, 'jerlov', 3, dtype, device)
-    return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
-                 coeffs_j=coeffs_j, clock=clock, state=state,
-                 forcing=forcing, dfl=dfl, swabs=swabs)
+    taux, tauy = cfg.wind_stress(grid.shape, ztx0)
+    forcing = dataclasses.replace(
+        forcing,
+        taux=torch.as_tensor(taux, dtype=dtype, device=device) * grid.iu,
+        tauy=torch.as_tensor(tauy, dtype=dtype, device=device) * grid.iv)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 
 
 def run(model: Model, nsteps: int):

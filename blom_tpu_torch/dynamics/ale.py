@@ -93,8 +93,16 @@ def unported_ale(ale: AleParams) -> list:
     return missing
 
 
+LIMITERS = (h3.MONOTONIC, h3.NON_OSCILLATORY, h3.NON_OSCILLATORY_POSDEF)
+
+
 def check_ale(ale: AleParams):
-    """Raise NotImplementedError naming the ALE options not ported."""
+    """Raise ValueError for a limiting that is not one of the three PPM
+    limiters, NotImplementedError naming the ALE options not ported."""
+    for name in ('tracer_limiting', 'velocity_limiting'):
+        if getattr(ale, name) not in LIMITERS:
+            raise ValueError(f'ALE {name}={getattr(ale, name)!r}: expected '
+                             f'one of {LIMITERS}')
     missing = unported_ale(ale)
     if missing:
         raise NotImplementedError('not ported to blom_tpu_torch: '

@@ -4,9 +4,12 @@
 (`dynamics/ale_pallas.py` regrid_call), `remap_cuda` its kernel K2
 (`_remap_chunk` / remap_call).  Each wrapper checks devices, dtypes,
 shapes and contiguity, allocates the outputs, launches on the current
-stream and counts its launches (`regrid_launches`, `remap_launches`).
-They take CUDA tensors only; `ale.ale_regrid_remap` sends CPU tensors
-to the plain versions `ale.regrid_plain` and `ale.remap_plain`."""
+stream and counts its launches per instantiation: `regrid_launches` by
+the tracer limiter of the T/S reconstruction, `remap_launches` by the
+(tracer, velocity) limiter pair.  Both kernels take
+the three limiters of ops/hor3map.py.  They take CUDA tensors only;
+`ale.ale_regrid_remap` sends CPU tensors to the plain versions
+`ale.regrid_plain` and `ale.remap_plain`."""
 
 from __future__ import annotations
 
@@ -14,10 +17,10 @@ import ctypes
 
 import torch
 
-from ..ops import hor3map as h3
+from .ale import LIMITERS, check_ale
 
-regrid_launches = 0
-remap_launches = 0
+regrid_launches = dict.fromkeys(LIMITERS, 0)
+remap_launches = {(t, v): 0 for t in LIMITERS for v in LIMITERS}
 
 KMAX = 64      # ALE_KMAX of csrc/ppm_column.cuh
 MAXNT = 32     # ALE_MAXNT of csrc/ale_remap.cu
@@ -35,7 +38,8 @@ def _fn(name, dtype, nargs):
 
 def _check(ale, named, ref):
     """Raise unless every tensor lies on ref's CUDA device with ref's
-    float dtype and is contiguous, and the limiting is ported."""
+    float dtype and is contiguous, and the ALE options are ported."""
+    check_ale(ale)
     if ref.dtype not in _DTYPES:
         raise TypeError(f'unsupported dtype {ref.dtype}')
     for name, t in named.items():
@@ -45,11 +49,6 @@ def _check(ale, named, ref):
             raise TypeError(f'{name} is {t.dtype}, expected {ref.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} is not contiguous')
-    for lim in (ale.tracer_limiting, ale.velocity_limiting):
-        if lim != h3.NON_OSCILLATORY:
-            raise NotImplementedError(
-                f'ALE kernels take limiting={h3.NON_OSCILLATORY!r}, '
-                f'not {lim!r}')
 
 
 def _shapes(kk, J, I, k1, k0):
@@ -66,7 +65,6 @@ def _shapes(kk, J, I, k1, k0):
 def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
     """Same contract as ale.regrid_plain, on the card: (p_dst,
     smooth_fac)."""
-    global regrid_launches
     kk1, J, I = p_src.shape
     kk = kk1 - 1
     k1 = {'p_src': p_src}
@@ -80,8 +78,9 @@ def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
     sfac = torch.empty_like(p_src)
     ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in (
         p_src, temp, saln, sigmar, p_dst, sfac)])
-    iargs = (ctypes.c_int * 4)(kk, J * I, ale.k_range_plevel,
-                               int(ale.tracer_pc_upper))
+    iargs = (ctypes.c_int * 5)(kk, J * I, ale.k_range_plevel,
+                               int(ale.tracer_pc_upper),
+                               LIMITERS.index(ale.tracer_limiting))
     ap = [e.ap11, e.ap12, e.ap13, e.ap14, e.ap15, e.ap16,
           e.ap21, e.ap22, e.ap23, e.ap24, e.ap25, e.ap26]
     dvals = [delt1 / ale.regrid_nudge_ts, ale.dpmin_interior,
@@ -92,14 +91,13 @@ def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
         err = _fn('ale_regrid', p_src.dtype, 4)(ptrs, iargs, dargs, stream)
     from ..cuda_build import check
     check(err, 'ale_regrid')
-    regrid_launches += 1
+    regrid_launches[ale.tracer_limiting] += 1
     return p_dst, sfac
 
 
 def remap_cuda(ale, p_src, tms, pu_q, u, pv_q, v, p_dst, pu_new, pv_new):
     """Same contract as ale.remap_plain, on the card: (means, u_mean,
     v_mean) with one mean per tracer of tms."""
-    global remap_launches
     kk1, J, I = p_src.shape
     kk = kk1 - 1
     nt = len(tms)
@@ -118,12 +116,14 @@ def remap_cuda(ale, p_src, tms, pu_q, u, pv_q, v, p_dst, pu_new, pv_new):
                v_out] + list(tms) + means
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr()
                                               for t in tensors])
-    iargs = (ctypes.c_int * 5)(kk, J * I, nt, int(ale.tracer_pc_upper),
-                               int(ale.velocity_pc_upper))
+    iargs = (ctypes.c_int * 7)(kk, J * I, nt, int(ale.tracer_pc_upper),
+                               int(ale.velocity_pc_upper),
+                               LIMITERS.index(ale.tracer_limiting),
+                               LIMITERS.index(ale.velocity_limiting))
     stream = torch.cuda.current_stream(p_src.device).cuda_stream
     with torch.cuda.device(p_src.device):
         err = _fn('ale_remap', p_src.dtype, 3)(ptrs, iargs, stream)
     from ..cuda_build import check
     check(err, 'ale_remap')
-    remap_launches += 1
+    remap_launches[(ale.tracer_limiting, ale.velocity_limiting)] += 1
     return means, u_out, v_out

@@ -52,9 +52,13 @@ def ale_vdifft(grid: Grid, e: eos.EosParams, s: State, forcing: Forcing,
     dtg = delt1 * grav
     c = grav * grav * delt1 / (alpha0 * alpha0)
 
+    # a true division, as blom_tpu's: PyTorch computes `c / x` for a
+    # Python scalar c as c * (1 / x), an ulp apart, and the solve of a
+    # column with massless bottom layers amplifies that to ~1e-10
     fpbase = torch.cat(
         [torch.zeros_like(dp_c[:1]),
-         c / torch.clamp(.5 * (dp_c[:-1] + dp_c[1:]), min=dpmin_vdiff)], 0)
+         torch.full_like(dp_c[1:], c)
+         / torch.clamp(.5 * (dp_c[:-1] + dp_c[1:]), min=dpmin_vdiff)], 0)
 
     hfsw = forcing.sswflx
     hfns = forcing.surflx - hfsw

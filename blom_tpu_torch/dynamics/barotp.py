@@ -115,9 +115,8 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
     """The per-substep update over a field bundle (mod_barotp.F90:360-838).
     The returned function updates the working-level tensors of its carry
     in place."""
-    if par.mommth != 'enscon':
-        raise NotImplementedError(
-            f'barotp mommth={par.mommth!r} is not ported (only enscon)')
+    if par.mommth not in ('enscon', 'enecon', 'enedis'):
+        raise ValueError(f'barotp mommth={par.mommth!r}')
     im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
     weights = substep_weights(lstep)
 
@@ -141,15 +140,23 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
                         - (fld['xiyp_n'] * pb_nl - fld['xiym_n'] * pbs))) \
             * fld['scvyi']
 
+    # q terms of the momentum equations (mod_barotp.F90:428-435 enscon,
+    # :471-480 enecon; enedis takes the enecon form)
     def coriolis_u(vb_src, pvt_w):
         vsx = vb_src * fld['scvxi']
-        return (vsx + jp1(vsx) + im1(vsx) + im1(jp1(vsx))) \
-            * (pvt_w + jp1(pvt_w)) * .125
+        if par.mommth == 'enscon':
+            return (vsx + jp1(vsx) + im1(vsx) + im1(jp1(vsx))) \
+                * (pvt_w + jp1(pvt_w)) * .125
+        return .25 * ((vsx + im1(vsx)) * pvt_w
+                      + (jp1(vsx) + im1(jp1(vsx))) * jp1(pvt_w))
 
     def coriolis_v(ub_src, pvt_w):
         usy = ub_src * fld['scuyi']
-        return -(usy + ip1(usy) + jm1(usy) + ip1(jm1(usy))) \
-            * (pvt_w + ip1(pvt_w)) * .125
+        if par.mommth == 'enscon':
+            return -(usy + ip1(usy) + jm1(usy) + ip1(jm1(usy))) \
+                * (pvt_w + ip1(pvt_w)) * .125
+        return -.25 * ((usy + jm1(usy)) * pvt_w
+                       + (ip1(usy) + ip1(jm1(usy))) * ip1(pvt_w))
 
     def continuity(pb_ml, pb_nl, ubf_ml, vbf_ml):
         return ((1. - wbaro) * pb_ml + wbaro * pb_nl

@@ -1,16 +1,16 @@
 """Compatible Piecewise Parabolic Method (CPPM) advection sweep.
 
-Counterpart of `blom_tpu/dynamics/cppm.py` (BLOM's mod_cppm.F90) for
-full compatibility with non-oscillatory limiting, the variant of the
-main path:
+Counterpart of `blom_tpu/dynamics/cppm.py` (BLOM's mod_cppm.F90) in all
+four variants: full or partial compatibility of the tracer edges with
+the thickness parabola, non-oscillatory or monotonic limiting.
 
 - `init_cppm_coeffs`: host numpy port of set_stencil_coeffs
   (mod_cppm.F90:101-320), land-stencil-aware per-cell coefficients;
 - `_cppm_sweep_body`: the plain PyTorch version of the sweep kernel —
-  thickness edges with non-oscillatory limiting (h_edges_nosc, :361-434),
-  compatible tracer edges from per-cell 4x4 LU solves
-  (parabola_coeffs_fc_nosc, :490-818), upstream flux integration
-  (:1373-1468) and the cell update;
+  thickness edges (h_edges_nosc/_mono, :361-488), tracer edges that are
+  compatible (per-cell 4x4 LU solves, parabola_coeffs_fc_*, :490-1116)
+  or partially so (parabola_coeffs_pc_*, :1118-1371), upstream flux
+  integration (:1373-1468) and the cell update;
 - `cppm_sweep`: dispatch.  A CUDA tensor goes through the hand-written
   kernel (`cppm_cuda`), a CPU tensor through `_cppm_sweep_body`.
 
@@ -289,9 +289,48 @@ def _minmod3(sl, sr, sc):
         torch.minimum(torch.abs(sl), torch.abs(sr)), torch.abs(sc))
 
 
-def _h_edges_nosc(co: CppmCoeffs, hm, periodic, ax):
+def _edge_clamp(co: CppmCoeffs, m, el, er, sh):
+    """Minmod-clamped edge values of the cell means m (the slope clamp
+    that every limiter of mod_cppm.F90 starts from, e.g. :381-400).
+    Returns (el2, er2, has_slope)."""
+    m_m = sh(m, -1)
+    m_p = sh(m, 1)
+    sl = co.ssc * (m - m_m)
+    sr = co.ssc * (m_p - m)
+    has_slope = sl * sr > 0.
+    sc = _minmod3(sl, sr, co.scc * (m_p - m_m))
+    el2 = torch.where((m_m - el) * (m - el) > 0.,
+                      m - torch.sign(sc) * torch.minimum(
+                          .5 * torch.abs(sc), torch.abs(el - m)),
+                      el)
+    er2 = torch.where((m_p - er) * (m - er) > 0.,
+                      m + torch.sign(sc) * torch.minimum(
+                          .5 * torch.abs(sc), torch.abs(er - m)),
+                      er)
+    return el2, er2, has_slope
+
+
+def _extremum_limit(m, el2, er2):
+    """Overshoot limit of a parabola's interior extremum (PPM form,
+    mod_cppm.F90:401-410)."""
+    d = er2 - el2
+    q = d * (2. * m - el2 - er2)
+    r = d * d / 3.
+    return (torch.where(q > r, 3. * m - 2. * er2, el2),
+            torch.where(-r > q, 3. * m - 2. * el2, er2))
+
+
+def _need(co: CppmCoeffs, d2, sh):
+    """Cells whose curvature changes sign against a neighbour: where the
+    non-oscillatory limiters act."""
+    d2 = co.d2m * d2
+    return (sh(d2, -1) * d2 <= 0.) | (d2 * sh(d2, 1) <= 0.)
+
+
+def _h_edges(co: CppmCoeffs, hm, periodic, ax, mono: bool):
     """Thickness edges with non-oscillatory limiting (h_edges_nosc,
-    mod_cppm.F90:361-434)."""
+    mod_cppm.F90:361-434) or, with `mono`, unconditional monotonic
+    limiting and no positivity fix (h_edges_mono, :436-488)."""
     def sh(a, off):
         return _sh(a, off, periodic, ax)
 
@@ -300,32 +339,13 @@ def _h_edges_nosc(co: CppmCoeffs, hm, periodic, ax):
     hel = he
     her = sh(he, 1)
 
-    d2h = co.d2m * (hel - 2. * hm + her)
-    need = (sh(d2h, -1) * d2h <= 0.) | (d2h * sh(d2h, 1) <= 0.)
-
-    hm_m = sh(hm, -1)
-    hm_p = sh(hm, 1)
-    sl = co.ssc * (hm - hm_m)
-    sr = co.ssc * (hm_p - hm)
-    has_slope = sl * sr > 0.
-    sc = _minmod3(sl, sr, co.scc * (hm_p - hm_m))
-
-    hel2 = torch.where((hm_m - hel) * (hm - hel) > 0.,
-                       hm - torch.sign(sc) * torch.minimum(
-                           .5 * torch.abs(sc), torch.abs(hel - hm)),
-                       hel)
-    her2 = torch.where((hm_p - her) * (hm - her) > 0.,
-                       hm + torch.sign(sc) * torch.minimum(
-                           .5 * torch.abs(sc), torch.abs(her - hm)),
-                       her)
-    d = her2 - hel2
-    q = d * (2. * hm - hel2 - her2)
-    r = d * d / 3.
-    hel3 = torch.where(q > r, 3. * hm - 2. * her2, hel2)
-    her3 = torch.where(-r > q, 3. * hm - 2. * hel2, her2)
-
+    hel2, her2, has_slope = _edge_clamp(co, hm, hel, her, sh)
+    hel3, her3 = _extremum_limit(hm, hel2, her2)
     hel_l = torch.where(has_slope, hel3, hm)
     her_l = torch.where(has_slope, her3, hm)
+    if mono:
+        return hel_l, her_l
+    need = _need(co, hel - 2. * hm + her, sh)
     hel = torch.where(need, hel_l, hel)
     her = torch.where(need, her_l, her)
 
@@ -441,12 +461,36 @@ def _tracer_edge_coeffs(co: CppmCoeffs, hm, hel, her, periodic, ax):
     return tevc
 
 
-def _parabola_coeffs_fc_nosc(co: CppmCoeffs, hm, tm, hel, her, periodic,
-                             ax):
-    """Tracer edge values, non-oscillatory limiting and parabola
-    coefficients (parabola_coeffs_fc_nosc, mod_cppm.F90:490-818).
-    tm: (nt, ...) stacked tracers; the positivity clamp applies to
-    tracer index >= 1 (mod_cppm.F90:791-805)."""
+def _positivity(tm, tel, ter, slope_curv):
+    """Non-negative parabolas for salinity and the passive tracers, the
+    stacked tracers of index >= 1 (mod_cppm.F90:791-805, :1239-1252).
+    slope_curv(tel, ter) gives the parabola's slope at its left edge and
+    its curvature term."""
+    nt = tm.shape[0]
+    pos = (torch.arange(nt, device=tm.device) >= 1).reshape(
+        (nt,) + (1,) * (tm.ndim - 1))
+    tel_p = torch.clamp(tel, min=0.)
+    ter_p = torch.clamp(ter, min=0.)
+    sl3, a23 = slope_curv(tel_p, ter_p)
+    sr3 = sl3 + 2. * a23
+    condp = (sl3 < 0.) & (sr3 > 0.) & (a23 * tel_p - .25 * sl3 * sl3 < 0.)
+    qq = 3. * tm / (3. * sl3 * sr3 + 4. * a23 * a23)
+    tel_p2 = torch.where(condp, sl3 * sl3 * qq, tel_p)
+    ter_p2 = torch.where(condp, sr3 * sr3 * qq, ter_p)
+    return torch.where(pos, tel_p2, tel), torch.where(pos, ter_p2, ter)
+
+
+def _thickness_parabola(hm, hel, her):
+    return hel, 6. * hm - 4. * hel - 2. * her, 3. * (hel - 2. * hm + her)
+
+
+def _parabola_coeffs_fc(co: CppmCoeffs, hm, tm, hel, her, periodic, ax,
+                        mono: bool):
+    """Compatible tracer edges from the per-cell LU solves, then
+    non-oscillatory limiting with the positivity fix
+    (parabola_coeffs_fc_nosc, mod_cppm.F90:490-818) or, with `mono`,
+    unconditional monotonic limiting (parabola_coeffs_fc_mono,
+    :820-1116).  tm: (nt, ...) stacked tracers."""
     def sh(a, off):
         return _sh(a, off, periodic, ax)
 
@@ -466,25 +510,8 @@ def _parabola_coeffs_fc_nosc(co: CppmCoeffs, hm, tm, hel, her, periodic,
     hf2l = 5. * (6. * hm + hel - her) * qh
     hf2r = 5. * (6. * hm - hel + her) * qh
 
-    d2t = co.d2m * (hf2m * tm + hf2l * tel + hf2r * ter)
-    need = (sh(d2t, -1) * d2t <= 0.) | (d2t * sh(d2t, 1) <= 0.)
-
-    tm_m = sh(tm, -1)
-    tm_p = sh(tm, 1)
-    sl = co.ssc * (tm - tm_m)
-    sr = co.ssc * (tm_p - tm)
-    has_slope = sl * sr > 0.
-    sc = _minmod3(sl, sr, co.scc * (tm_p - tm_m))
-
-    tel2 = torch.where((tm_m - tel) * (tm - tel) > 0.,
-                       tm - torch.sign(sc) * torch.minimum(
-                           .5 * torch.abs(sc), torch.abs(tel - tm)),
-                       tel)
-    ter2 = torch.where((tm_p - ter) * (tm - ter) > 0.,
-                       tm + torch.sign(sc) * torch.minimum(
-                           .5 * torch.abs(sc), torch.abs(ter - tm)),
-                       ter)
-    # non-oscillatory slope fix (mod_cppm.F90:766-782)
+    tel2, ter2, has_slope = _edge_clamp(co, tm, tel, ter, sh)
+    # derivative-sign fix of the compatible parabola (mod_cppm.F90:766-782)
     sl2 = hf1m * tm + hf1l * tel2 + hf1r * ter2
     a2 = hf2m * tm + hf2l * tel2 + hf2r * ter2
     sr2 = sl2 + 2. * a2
@@ -502,32 +529,55 @@ def _parabola_coeffs_fc_nosc(co: CppmCoeffs, hm, tm, hel, her, periodic,
 
     tel_l = torch.where(has_slope, tel3, tm)
     ter_l = torch.where(has_slope, ter3, tm)
-    tel = torch.where(need, tel_l, tel)
-    ter = torch.where(need, ter_l, ter)
+    if mono:
+        tel, ter = tel_l, ter_l
+    else:
+        need = _need(co, hf2m * tm + hf2l * tel + hf2r * ter, sh)
+        tel = torch.where(need, tel_l, tel)
+        ter = torch.where(need, ter_l, ter)
+        tel, ter = _positivity(
+            tm, tel, ter, lambda l, r: (hf1m * tm + hf1l * l + hf1r * r,
+                                        hf2m * tm + hf2l * l + hf2r * r))
 
-    # positivity for saln/passive tracers (mod_cppm.F90:791-805)
-    nt = tm.shape[0]
-    pos = (torch.arange(nt, device=tm.device) >= 1).reshape(
-        (nt,) + (1,) * (tm.ndim - 1))
-    tel_p = torch.clamp(tel, min=0.)
-    ter_p = torch.clamp(ter, min=0.)
-    sl3 = hf1m * tm + hf1l * tel_p + hf1r * ter_p
-    a23 = hf2m * tm + hf2l * tel_p + hf2r * ter_p
-    sr3 = sl3 + 2. * a23
-    condp = (sl3 < 0.) & (sr3 > 0.) & (a23 * tel_p - .25 * sl3 * sl3 < 0.)
-    qq = 3. * tm / (3. * sl3 * sr3 + 4. * a23 * a23)
-    tel_p2 = torch.where(condp, sl3 * sl3 * qq, tel_p)
-    ter_p2 = torch.where(condp, sr3 * sr3 * qq, ter_p)
-    tel = torch.where(pos, tel_p2, tel)
-    ter = torch.where(pos, ter_p2, ter)
-
-    hpc0 = hel
-    hpc1 = 6. * hm - 4. * hel - 2. * her
-    hpc2 = 3. * (hel - 2. * hm + her)
     tpc0 = tel
     tpc1 = hf1m * tm + hf1l * tel + hf1r * ter
     tpc2 = hf2m * tm + hf2l * tel + hf2r * ter
-    return (hpc0, hpc1, hpc2), (tpc0, tpc1, tpc2)
+    return _thickness_parabola(hm, hel, her), (tpc0, tpc1, tpc2)
+
+
+def _parabola_coeffs_pc(co: CppmCoeffs, hm, tm, hel, her, periodic, ax,
+                        mono: bool):
+    """Tracer edges from the thickness edge coefficients, not compatible
+    with the thickness parabola (mod_cppm.F90:1143-1155), limited as
+    plain PPM: non-oscillatory with the positivity fix
+    (parabola_coeffs_pc_nosc, :1118-1264) or, with `mono`, unconditional
+    monotonic limiting (parabola_coeffs_pc_mono, :1266-1371)."""
+    def sh(a, off):
+        return _sh(a, off, periodic, ax)
+
+    te = (co.hevc[0] * sh(tm, -2) + co.hevc[1] * sh(tm, -1)
+          + co.hevc[2] * tm + co.hevc[3] * sh(tm, 1))
+    tel = te
+    ter = sh(te, 1)
+
+    tel2, ter2, has_slope = _edge_clamp(co, tm, tel, ter, sh)
+    tel3, ter3 = _extremum_limit(tm, tel2, ter2)
+    tel_l = torch.where(has_slope, tel3, tm)
+    ter_l = torch.where(has_slope, ter3, tm)
+    if mono:
+        tel, ter = tel_l, ter_l
+    else:
+        need = _need(co, tel - 2. * tm + ter, sh)
+        tel = torch.where(need, tel_l, tel)
+        ter = torch.where(need, ter_l, ter)
+        tel, ter = _positivity(
+            tm, tel, ter, lambda l, r: (2. * (3. * tm - 2. * l - r),
+                                        3. * (l - 2. * tm + r)))
+
+    tpc0 = tel
+    tpc1 = 6. * tm - 4. * tel - 2. * ter
+    tpc2 = 3. * (tel - 2. * tm + ter)
+    return _thickness_parabola(hm, hel, her), (tpc0, tpc1, tpc2)
 
 
 def _flux_integration(ca, ai, db, du, dl, hpc, tpc, periodic, ax):
@@ -579,17 +629,37 @@ def _flux_integration(ca, ai, db, du, dl, hpc, tpc, periodic, ax):
     return torch.where(neg, hf_n, hf_p), torch.where(neg, htf_n, htf_p)
 
 
+COMPATIBILITIES = ('full', 'partial')
+LIMITINGS = ('non_oscillatory', 'monotonic')
+
+
+def check_variant(compatibility: str, limiting: str):
+    """Raise ValueError unless (compatibility, limiting) is one of the
+    four sweep variants (the cppm namelist options,
+    mod_cppm.F90:2748-2834)."""
+    if compatibility not in COMPATIBILITIES or limiting not in LIMITINGS:
+        raise ValueError(f'cppm compatibility={compatibility!r} '
+                         f'limiting={limiting!r}: expected one of '
+                         f'{COMPATIBILITIES} and one of {LIMITINGS}')
+
+
 def _cppm_sweep_body(hm_in, tm, ca, db, du, dl, ai, co: CppmCoeffs,
-                     periodic: bool, div_corr=None, ax: int = -1):
-    """Plain PyTorch version of the sweep (full compatibility,
-    non-oscillatory limiting).  Returns (hn, tm_new, hf, htf)."""
+                     periodic: bool, div_corr=None, ax: int = -1,
+                     compatibility: str = 'full',
+                     limiting: str = 'non_oscillatory'):
+    """Plain PyTorch version of the sweep, for every (compatibility,
+    limiting) variant.  Returns (hn, tm_new, hf, htf)."""
+    check_variant(compatibility, limiting)
     ho = torch.clamp(hm_in, min=0.) + dpeps
     hm = ho
     if div_corr is not None:
         hm = hm / (1. - div_corr * ai)
 
-    hel, her = _h_edges_nosc(co, hm, periodic, ax)
-    hpc, tpc = _parabola_coeffs_fc_nosc(co, hm, tm, hel, her, periodic, ax)
+    mono = limiting == 'monotonic'
+    hel, her = _h_edges(co, hm, periodic, ax, mono)
+    coeffs = (_parabola_coeffs_fc if compatibility == 'full'
+              else _parabola_coeffs_pc)
+    hpc, tpc = coeffs(co, hm, tm, hel, her, periodic, ax, mono)
     hf, htf = _flux_integration(ca, ai, db, du, dl, hpc, tpc, periodic, ax)
 
     hf_e = _sh(hf, 1, periodic, ax)
@@ -604,28 +674,29 @@ def cppm_sweep(hm_in, tm, ca, db, du, dl, ai, co: CppmCoeffs,
                periodic: bool, div_corr=None,
                compatibility: str = 'full',
                limiting: str = 'non_oscillatory', ax: int = -1):
-    """One 1-D CPPM transport sweep along axis `ax` (cppm_fc_nosc_{i,j},
-    mod_cppm.F90:1470-2498).
+    """One 1-D CPPM transport sweep along axis `ax`
+    (cppm_{fc,pc}_{nosc,mono}_{i,j}, mod_cppm.F90:1470-2498).
 
     hm_in: (k, J, I) thickness; tm: (nt, k, J, I) tracers; ca: (k, J, I)
     flux area at the left edge of each cell; db: bottom pressure at
     edges, (J, I) or (k, J, I); du/dl: cell top/bottom interface
     pressure; ai: inverse cell area, (J, I) or (k, J, I); div_corr:
-    transverse flux-area divergence for the second Strang pass.
+    transverse flux-area divergence for the second Strang pass;
+    compatibility 'full' or 'partial', limiting 'non_oscillatory' or
+    'monotonic'.
 
     Returns (h_new_raw, tm_new, hf, htf): h_new_raw = ho - div(hf)*ai
     (before the dp clamp), updated tracers and the edge fluxes.  CUDA
     tensors go through the hand-written kernel, CPU tensors through
     `_cppm_sweep_body`."""
-    if (compatibility, limiting) != ('full', 'non_oscillatory'):
-        raise NotImplementedError(
-            f'cppm compatibility={compatibility!r} limiting={limiting!r} '
-            'is not ported (only full/non_oscillatory)')
+    check_variant(compatibility, limiting)
     if ax not in (-1, -2):
         raise ValueError(f'sweep axis {ax}')
     if hm_in.is_cuda:
         from .cppm_cuda import cppm_sweep_cuda
         return cppm_sweep_cuda(hm_in, tm, ca, db, du, dl, ai, co, periodic,
-                               div_corr=div_corr, ax=ax)
+                               div_corr=div_corr, ax=ax,
+                               compatibility=compatibility,
+                               limiting=limiting)
     return _cppm_sweep_body(hm_in, tm, ca, db, du, dl, ai, co, periodic,
-                            div_corr, ax)
+                            div_corr, ax, compatibility, limiting)

@@ -3,8 +3,9 @@
 Replaces blom_tpu's Pallas kernel `dynamics/cppm_pallas.py`.  The
 wrapper checks devices, dtypes, shapes and contiguity, allocates the
 outputs, launches on the current stream and counts its launches in
-`launches`.  It takes CUDA tensors only; `cppm.cppm_sweep` sends CPU
-tensors to the plain version."""
+`launches`, per (compatibility, limiting) variant.  It takes CUDA
+tensors only; `cppm.cppm_sweep` sends CPU tensors to the plain
+version."""
 
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ import ctypes
 
 import torch
 
-from .cppm import CppmCoeffs
+from .cppm import COMPATIBILITIES, LIMITINGS, CppmCoeffs, check_variant
 
-launches = 0
+launches = {(c, lim): 0 for c in COMPATIBILITIES for lim in LIMITINGS}
 
 _DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
 
@@ -37,9 +38,11 @@ _BLOCK = {-1: (192, 1), -2: (256, 4)}
 
 
 def cppm_sweep_cuda(hm, tm, ca, db, du, dl, ai, co: CppmCoeffs,
-                    periodic: bool, div_corr=None, ax: int = -1):
+                    periodic: bool, div_corr=None, ax: int = -1,
+                    compatibility: str = 'full',
+                    limiting: str = 'non_oscillatory'):
     """Same contract as cppm._cppm_sweep_body, on the card."""
-    global launches
+    check_variant(compatibility, limiting)
     if ax not in (-1, -2):
         raise ValueError(f'sweep axis {ax}')
     dtype = hm.dtype
@@ -85,13 +88,14 @@ def cppm_sweep_cuda(hm, tm, ca, db, du, dl, ai, co: CppmCoeffs,
     ptr_arr = (ctypes.c_void_p * len(ptrs))(
         *[0 if t is None else t.data_ptr() for t in ptrs])
     threads, nw = _BLOCK[ax]
-    iargs = (ctypes.c_int * 10)(
+    iargs = (ctypes.c_int * 12)(
         kk, J, I, nt, ax, int(periodic), nw,
-        int(db.dim() == 3), int(ai.dim() == 3), threads)
+        int(db.dim() == 3), int(ai.dim() == 3), threads,
+        int(compatibility == 'full'), int(limiting == 'monotonic'))
     stream = torch.cuda.current_stream(hm.device).cuda_stream
     with torch.cuda.device(hm.device):
         err = _fn(dtype)(ptr_arr, iargs, stream)
     from ..cuda_build import check
     check(err, 'cppm_sweep')
-    launches += 1
+    launches[(compatibility, limiting)] += 1
     return hn, tmn, hf, htf

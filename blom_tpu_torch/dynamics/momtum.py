@@ -1,7 +1,9 @@
-"""Baroclinic momentum equation, enstrophy-conserving scheme.
+"""Baroclinic momentum equation.
 
 Counterpart of `blom_tpu/dynamics/momtum.py` (BLOM's
-mod_momtum.F90:215-1280) for mommth='enscon':
+mod_momtum.F90:215-1280) with the three vorticity schemes of `mommth`:
+enstrophy-conserving (enscon), energy-conserving (enecon) and
+energy-conserving with upwind-selected mass fluxes (enedis).
 
 - the prologue: bottom drag, barotropic r.h.s., wind stress and the PGF
   time blend;
@@ -148,19 +150,77 @@ def potvor_field(grid: Grid, dp_m, utotm, vtotm, dpmx=None):
     return absvor / dpvor
 
 
-def coriolis_terms(grid: Grid, utotm, vtotm, uflux0, vflux0, potvor,
+MOMMTHS = ('enscon', 'enecon', 'enedis')
+
+
+def coriolis_terms(grid: Grid, dp_m, utotm, vtotm, uflux0, vflux0, potvor,
                    mommth: str):
-    """Coriolis advection terms cau/cav (mod_momtum.F90:664-838)."""
-    if mommth != 'enscon':
-        raise NotImplementedError(
-            f'mommth={mommth!r} is not ported (only enscon)')
+    """Coriolis advection terms cau/cav of the three vorticity schemes
+    (enscon/enecon/enedis, mod_momtum.F90:664-838)."""
     iu, iv = grid.iu, grid.iv
     im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
-    cau = .125 * (vflux0 + jp1(vflux0) + im1(vflux0) + im1(jp1(vflux0))) \
-        * (potvor + jp1(potvor)) * iu
-    cav = -.125 * (uflux0 + ip1(uflux0) + jm1(uflux0) + ip1(jm1(uflux0))) \
-        * (potvor + ip1(potvor)) * iv
+    if mommth == 'enscon':
+        cau = .125 * (vflux0 + jp1(vflux0) + im1(vflux0)
+                      + im1(jp1(vflux0))) * (potvor + jp1(potvor)) * iu
+        cav = -.125 * (uflux0 + ip1(uflux0) + jm1(uflux0)
+                       + ip1(jm1(uflux0))) * (potvor + ip1(potvor)) * iv
+    elif mommth == 'enecon':
+        cau = .25 * ((vflux0 + im1(vflux0)) * potvor
+                     + (jp1(vflux0) + im1(jp1(vflux0))) * jp1(potvor)) * iu
+        cav = -.25 * ((uflux0 + jm1(uflux0)) * potvor
+                      + ip1(uflux0 + jm1(uflux0)) * ip1(potvor)) * iv
+    elif mommth == 'enedis':
+        # the energy-conserving scheme with upwind-selected minimum and
+        # maximum mass fluxes for slight dissipation
+        # (mod_momtum.F90:664-712 min/max setup, :765-812 fluxes)
+        uh_min, uh_max, vh_min, vh_max = enedis_fluxes(grid, dp_m, utotm,
+                                                       vtotm, uflux0, vflux0)
+        t1u = _upw(jp1(potvor), utotm, jp1(vh_max) + im1(jp1(vh_max)),
+                   jp1(vh_min) + im1(jp1(vh_min)), False)
+        t2u = _upw(potvor, utotm, vh_max + im1(vh_max),
+                   vh_min + im1(vh_min), False)
+        cau = .25 * (t1u + t2u) * iu
+        t1v = _upw(ip1(potvor), vtotm, ip1(uh_max) + jm1(ip1(uh_max)),
+                   ip1(uh_min) + jm1(ip1(uh_min)), True)
+        t2v = _upw(potvor, vtotm, uh_max + jm1(uh_max),
+                   uh_min + jm1(uh_min), True)
+        cav = -.25 * (t1v + t2v) * iv
+    else:
+        raise ValueError(f'mommth={mommth!r}: expected one of {MOMMTHS}')
     return cau, cav
+
+
+def _hminmax(hc, hm):
+    """The minimum and maximum of the centred mass flux hc and the
+    upstream-limited one hm, hc first pulled toward hm (enedis,
+    mod_momtum.F90:664-712)."""
+    c1, c2, c3, slp_ = 1. - 1.5 * .5, 1. - .5, 2., .5
+    hm2 = torch.where(torch.abs(hc) < .1 * torch.abs(hm), 10. * hc, hm)
+    adj = torch.where(
+        torch.abs(hc) < c2 * torch.abs(hm2),
+        3. * hc + (1. - c2 * 3.) * hm2,
+        torch.where(torch.abs(hc) <= c3 * torch.abs(hm2), hm2,
+                    slp_ * hc + (1. - c3 * slp_) * hm2))
+    hc2 = torch.where(torch.abs(hc) > c1 * torch.abs(hm2), adj, hc)
+    return torch.minimum(hc2, hm2), torch.maximum(hc2, hm2)
+
+
+def enedis_fluxes(grid: Grid, dp_m, utotm, vtotm, uflux0, vflux0):
+    """(uh_min, uh_max, vh_min, vh_max): the enedis scheme's mass-flux
+    bounds at u and v points."""
+    im1, jm1 = grid.im1, grid.jm1
+    uh_min, uh_max = _hminmax(.5 * utotm * (dp_m + im1(dp_m)), uflux0)
+    vh_min, vh_max = _hminmax(.5 * vtotm * (dp_m + jm1(dp_m)), vflux0)
+    return uh_min, uh_max, vh_min, vh_max
+
+
+def _upw(pv, sgn, hmx, hmn, flip):
+    """pv times the flux bound upstream of the advecting velocity sgn,
+    the mean of both where pv*sgn is zero."""
+    s_ = pv * sgn
+    sel = torch.where(s_ == 0., .5 * (hmx + hmn),
+                      torch.where((s_ < 0.) != flip, hmx, hmn))
+    return pv * sel
 
 
 def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
@@ -245,8 +305,8 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
         * grid.scp2i
 
     # ---- Coriolis advection terms (mod_momtum.F90:719-784)
-    cau, cav = coriolis_terms(grid, utotm, vtotm, uflux0, vflux0, potvor,
-                              par.mommth)
+    cau, cav = coriolis_terms(grid, dp_m, utotm, vtotm, uflux0, vflux0,
+                              potvor, par.mommth)
 
     # ================= u equation =================
     # deformation-dependent viscosity at u (mod_momtum.F90:790-804)
@@ -385,9 +445,8 @@ def momtum_uv(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
               tsfac, delt1):
     """Stencil-core dispatch: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if par.mommth != 'enscon':
-        raise NotImplementedError(
-            f'mommth={par.mommth!r} is not ported (only enscon)')
+    if par.mommth not in MOMMTHS:
+        raise ValueError(f'mommth={par.mommth!r}: expected one of {MOMMTHS}')
     if f.u_m.is_cuda:
         from .momtum_cuda import momtum_uv_cuda
         return momtum_uv_cuda(grid, par, f, d2, tsfac, delt1)

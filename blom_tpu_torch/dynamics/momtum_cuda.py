@@ -1,9 +1,9 @@
 """Wrapper of the CUDA momentum stencil kernels (csrc/momtum_uv.cu).
 
 Replaces blom_tpu's Pallas kernel `dynamics/momtum_pallas.py`.  One call
-launches the three stages of the stencil core on the current stream, in
-order; `launches` counts stage launches, three per call.  The wrapper
-checks devices, dtypes, shapes and
+launches the three stages of the stencil core of `par.mommth` on the
+current stream, in order; `launches` counts stage launches per scheme,
+three per call.  The wrapper checks devices, dtypes, shapes and
 contiguity and allocates the outputs and the staging scratch.  It takes
 CUDA tensors only; `momtum.momtum_uv` sends CPU tensors to the plain
 version."""
@@ -14,9 +14,9 @@ import ctypes
 
 import torch
 
-from .momtum import Momtum2DIn, MomtumKIn, MomtumParams
+from .momtum import MOMMTHS, Momtum2DIn, MomtumKIn, MomtumParams
 
-launches = 0
+launches = dict.fromkeys(MOMMTHS, 0)
 
 # grid planes the kernel reads, in the order of its G_* enum
 METRICS = ('ip', 'iu', 'iv', 'iq', 'scux', 'scuy', 'scvx', 'scvy', 'scuxi',
@@ -41,10 +41,9 @@ def _fn(dtype):
 def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
                    tsfac, delt1):
     """Same contract as momtum._uv_body, on the card."""
-    global launches
-    if par.mommth != 'enscon':
-        raise NotImplementedError(
-            f'mommth={par.mommth!r} has no CUDA kernel (only enscon)')
+    if par.mommth not in MOMMTHS:
+        raise ValueError(f'mommth={par.mommth!r}: expected one of {MOMMTHS}')
+    scheme = MOMMTHS.index(par.mommth)
     if grid.arctic:
         raise NotImplementedError('tripolar grids have no CUDA kernel')
     dtype = f.u_m.dtype
@@ -67,8 +66,10 @@ def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
             raise ValueError(f'{name} is not contiguous')
 
     # the fields the kernel stages between its launches
-    scratch = torch.empty((_lib().momtum_scratch_fields(), kk, J, I),
-                          dtype=dtype, device=dev)
+    nscratch = _lib().momtum_scratch_fields
+    nscratch.argtypes, nscratch.restype = [ctypes.c_int], ctypes.c_int
+    scratch = torch.empty((nscratch(scheme), kk, J, I), dtype=dtype,
+                          device=dev)
     u_new = torch.empty_like(f.u_m)
     v_new = torch.empty_like(f.v_m)
     ptrs = [*f, *d2, *planes, scratch, u_new, v_new]
@@ -76,8 +77,8 @@ def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
     dargs = (ctypes.c_double * 10)(
         tsfac, delt1, par.mdv2hi, par.mdv2lo, par.mdv4hi, par.mdv4lo,
         par.vsc2hi, par.vsc2lo, par.vsc4hi, par.vsc4lo)
-    iargs = (ctypes.c_int * 6)(kk, J, I, int(grid.periodic_i),
-                               int(grid.periodic_j), _THREADS)
+    iargs = (ctypes.c_int * 7)(kk, J, I, int(grid.periodic_i),
+                               int(grid.periodic_j), _THREADS, scheme)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _fn(dtype)
     from ..cuda_build import check
@@ -85,5 +86,5 @@ def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
         for stage in (1, 2, 3):
             check(fn(ptr_arr, dargs, iargs, stage, stream),
                   f'momtum_uv stage {stage}')
-            launches += 1
+            launches[par.mommth] += 1
     return u_new, v_new

@@ -6,29 +6,47 @@
 Phases, each reported as one JSON line; any failure exits nonzero:
 
 1. the card: name and power limit from nvidia-smi;
-2. build: the four CUDA kernels compiled by nvcc for sm_90a from the
-   sources under blom_tpu_torch/csrc (one nvcc each, all at once), with
-   ptxas registers, stack frames and spills;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (kk=53, J=360, I=384; two CPPM tracers; the
-   ALE remap with ntr 0 and 5), in f64 (rtol = atol = 1e-12) and in f32
-   (max |err| <= F32_REL * max |ref| per output); median time of the
-   kernel and of the plain version from CUDA events, the bound from the
-   bytes each call must move and the operations its loops do, and the
-   device time of each momentum stage from torch.profiler;
+2. build: the four CUDA sources compiled by nvcc for sm_90a from
+   blom_tpu_torch/csrc (one nvcc each, all at once; every variant is an
+   instantiation of its kernel's template), with ptxas registers, stack
+   frames and spills of every instantiation;
+3. kernels: each kernel in each variant against its plain PyTorch
+   version on the card, at the main path's shapes (kk=53, J=360, I=384;
+   two CPPM tracers; the ALE remap with ntr 0 and 5): the CPPM sweep in
+   its four (compatibility, limiting) variants on both axes, the
+   momentum core in its three schemes, ALE K1 and K2 with each of the
+   three limiters (K2 also with the tracer and velocity limiters of the
+   channel deck B), in f64 (rtol = atol = 1e-12) and in f32 (max |err| <=
+   F32_REL * max |ref| per output); median time of the kernel and of the
+   plain version from CUDA events, the bound from the bytes each call
+   must move and the operations its loops do, and the device time of
+   each momentum stage from torch.profiler;
 4. slice: the full fuk95 step (ALE regrid/remap, lateral and vertical
    mixing) with bench.py's physics at 384x360x53 in f32 through
    build_fuk95 and run, for 10 and for 11 steps after a warm-up: finite
    fields, mass drift, salinity near 35 (SALN_DEV_ALE), launch counts
    (CPPM 2, momentum 3 stage launches, ALE regrid 1 and ALE remap 1 per
-   step), the eddy-transport limiter's host syncs per step, seconds per
-   step and grid-points/s; then the device time of each phase of the step, from
-   the events blom_step records; then the adiabatic core alone
-   (par._replace(ale=None, vmix=None, difest=None)) for a few steps;
+   step, all in the main path's variants), the eddy-transport limiter's
+   host syncs per step, seconds per step and grid-points/s; then the
+   device time of each phase of the step, from the events blom_step
+   records; then the adiabatic core alone (par._replace(ale=None,
+   vmix=None, difest=None)) for a few steps;
 5. parity: the full step at 24x8x8 in f64 on the card against the CPU,
    one step at each time-level parity (gated), and 4 driver steps
    (reported);
-6. the kernels summary line, then the device line last.
+6. decks: each limits deck of DECKS (written under build/decks/) built
+   by the port's build_case, first as fuk95 at 384x360x53 in f32 for 10
+   timed steps after a 2-step warm-up, then as the channel at its full
+   208x512 width with 16 layers in f64 for one timed step after a
+   one-step warm-up (CHANNEL_KDM, CHANNEL_DTYPE: see there), the runs
+   each from the initial state: finite fields, mass drift, salinity near
+   35, for the channel moving water (CHANNEL_SPEED), the launches of
+   every (kernel, instantiation) per step, seconds per step and
+   grid-points/s; for the channel then one f64 step of each time-level
+   parity at 24x32x10 on the card against the CPU (gated);
+7. the kernels summary line, then the device line last.  It fails if a
+   variant of a kernel launched on none of the paths (fuk95, the core,
+   the decks).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -55,8 +73,74 @@ STEP_REL = 1e-5         # whole-step parity tolerance (see tests)
 SALN_DEV = 1e-4
 SALN_DEV_ALE = 5e-3
 NTR_CHECK = (0, 5)      # tracer counts of the ALE remap check
+# The channel as blom_tpu builds it (ROADMAP section 3, each shown by
+# blom_tpu itself on the CPU): with its 30 layers the initial sigma
+# ladder reaches sigma 30.5, beyond the EOS at S = 35, so the initial
+# temperature is NaN (16 layers is the most that stays finite); in f32
+# its first ALE step is NaN next to the shelf's vanishing bottom layers;
+# in f64 it turns NaN within a few steps (deck C at 16x24x8 after nine
+# steps run op by op, tests/test_torch_case.py), and so does the port,
+# at a step that depends on rounding.  The channel decks therefore run
+# at the full 208x512 with 16 layers, in f64, for their first step only:
+# a warm-up step and a timed step, each from the initial state; the port
+# follows blom_tpu's first step to rounding (tests/test_torch_case.py).
+# The decks run for 2 + 10 steps as fuk95.
+CHANNEL_KDM = 16
+CHANNEL_DTYPE = 'float64'
+# max |u + ub| after the timed step [m s-1]: the wind (and the
+# barotropic adjustment of the initial state, ~0.8 m s-1 in ub from the
+# first step on, blom_tpu's too) must move the water, and no faster than
+# this
+CHANNEL_SPEED = (1e-4, 2.)
+PARITY_CHANNEL = dict(ITDM=24, JTDM=32, KDM=10)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+
+# The decks: BLOM `limits` namelists; each selects one momentum scheme,
+# one CPPM variant and the ALE limiters, so that with the fuk95 main path
+# every variant of every kernel runs.  Each is run as the channel (its
+# time steps and coastal wave-breaking damping) and as fuk95 (its time
+# steps; build_fuk95 keeps them whatever the deck says).
+# {name: (MOMMTH, CPPM_COMPATIBILITY, CPPM_LIMITING, TRACER_LIMITING,
+# VELOCITY_LIMITING)}
+DECKS = {
+    'A': ('enecon', 'partial', 'non_oscillatory', 'monotonic', 'monotonic'),
+    'B': ('enedis', 'full', 'monotonic', 'non_oscillatory_posdef',
+          'non_oscillatory'),
+    'C': ('enscon', 'partial', 'monotonic', 'non_oscillatory',
+          'non_oscillatory'),
+}
+EXPERIMENTS = {'channel': dict(baclin='300.', batrop='10.', cwbdts='5.e-5'),
+               'fuk95': dict(baclin='180.', batrop='6.', cwbdts='0.')}
+DECK_TEXT = """\
+! {expcnf} deck {name}
+&LIMITS
+  NDAY1    = 0,
+  NDAY2    = 1,
+  EXPCNF   = '{expcnf}',
+  BACLIN   = {baclin},
+  BATROP   = {batrop},
+  CWBDTS   = {cwbdts},
+  CWBDLS   = 25.,
+  MOMMTH   = '{mommth}',
+  CPPM_COMPATIBILITY = '{compat}',
+  CPPM_LIMITING      = '{lim}',
+  DTYPE    = '{dtype}'
+/
+&ALE_REGRID_REMAP
+  TRACER_LIMITING   = '{tlim}',
+  VELOCITY_LIMITING = '{vlim}'
+/
+"""
+
+
+def deck_text(name, dtype, expcnf='channel'):
+    """The limits deck `name` of DECKS for `expcnf`, computing in
+    `dtype`."""
+    mommth, compat, lim, tlim, vlim = DECKS[name]
+    return DECK_TEXT.format(name=name, expcnf=expcnf, mommth=mommth,
+                            compat=compat, lim=lim, tlim=tlim, vlim=vlim,
+                            dtype=dtype, **EXPERIMENTS[expcnf])
 
 
 def emit(phase, **kw):
@@ -71,14 +155,36 @@ def card_line():
     return out[0]
 
 
+KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_stage1', 'momtum_stage2',
+                'momtum_stage3', 'ale_regrid_kernel', 'ale_remap_kernel',
+                'remap_group')
+
+
+def short_name(mangled):
+    """'cppm_sweep_kernel<f,1,0>' for the mangled name of an instantiation
+    (type f or d, then the integer and bool template arguments)."""
+    for name in KERNEL_NAMES:
+        i = mangled.find(name)
+        if i < 0:
+            continue
+        rest = mangled[i + len(name):]
+        if not rest.startswith('I'):
+            return name
+        args = re.findall(r'L[ib](\d+)E|([fd])(?=L|E)', rest[1:])
+        return name + '<' + ','.join(a or b for a, b in args) + '>'
+    return mangled
+
+
 def ptxas_summary(log):
-    """{kernel: {'registers': n, 'stack_frame': b, 'spill_stores': b,
-    'spill_loads': b}} from nvcc's -Xptxas -v output."""
+    """{function: {'registers': n, 'stack_frame': b, 'spill_stores': b,
+    'spill_loads': b}} from nvcc's -Xptxas -v output, for every kernel
+    instantiation and every device function compiled on its own."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line) or \
+            re.search(r'Function properties for (\w+)', line)
         if m:
-            name = m.group(1)
+            name = short_name(m.group(1))
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
                       line)
         if m and name:
@@ -130,10 +236,13 @@ def compare(outs, refs, dtype):
 
 # ---------------------------------------------------------------- kernels
 
+_CPPM_COEFFS = {}
+
+
 def cppm_inputs(ax, periodic, dtype, dev):
     import numpy as np
     import torch
-    from blom_tpu_torch.dynamics.cppm import init_cppm_coeffs
+    from blom_tpu_torch.dynamics.cppm import CppmCoeffs, init_cppm_coeffs
     rng = np.random.default_rng(SEED)
     ip = np.ones((JJ, II))
     ip[rng.uniform(size=(JJ, II)) < .02] = 0.
@@ -144,8 +253,15 @@ def cppm_inputs(ax, periodic, dtype, dev):
         else:
             ip[0, :] = ip[-1, :] = 0.
     dx = rng.uniform(.6, 1.5, (JJ, II))
-    co = init_cppm_coeffs(ip, dx, axis=ax, periodic=periodic, dtype=dtype,
-                          device=dev)
+    # the host set-up of the coefficients, in f64, once per axis and
+    # periodicity; a dtype conversion rounds as building in it does
+    key = (ax, periodic)
+    if key not in _CPPM_COEFFS:
+        _CPPM_COEFFS[key] = init_cppm_coeffs(ip, dx, axis=ax,
+                                             periodic=periodic)
+    co = CppmCoeffs(*[c.to(device=dev, dtype=torch.int32 if
+                           c.dtype == torch.int32 else dtype)
+                      for c in _CPPM_COEFFS[key]])
     h = rng.uniform(.2, 2., (KK, JJ, II))
     p = np.concatenate([np.zeros((1, JJ, II)), np.cumsum(h, 0)])
 
@@ -159,17 +275,32 @@ def cppm_inputs(ax, periodic, dtype, dev):
     return co, args, div
 
 
-def cppm_bytes(dtype, has_div):
+# rows of each of tmc0/tmcl/tmcr that the LU solve of a cell's stencil
+# class reads (tracer_edge_coeffs in csrc/cppm_sweep.cu), by class tag
+# S0000, S1111, S1110, S0111, S1100, S0110, S0011, S0100, S0010
+TMC_ROWS = (0, 12, 9, 9, 6, 6, 6, 0, 0)
+
+
+def cppm_bytes(dtype, has_div, compat, lim, stencil):
+    """Bytes the sweep in variant (compat, lim) must move: each 3-D input
+    and output once, and the planes it reads: db, ai, hevc (4), ssc, scc,
+    d2m (non-oscillatory only) and, with full compatibility, the int32
+    stencil class and the tmc rows of each cell's class in `stencil`."""
     import torch
     es = torch.finfo(dtype).bits // 8
     n3 = 4 + int(has_div) + NT + 2 + 2 * NT   # inputs + outputs, 3-D
-    n2 = 2 + 4 + 3 + 36                       # db, ai, hevc, ssc/scc/d2m, tmc
-    return es * (n3 * KK * JJ * II + n2 * JJ * II) + 4 * JJ * II
+    n2 = 2 + 4 + 2 + int(lim == 'non_oscillatory')
+    nbytes = es * (n3 * KK * JJ * II + n2 * JJ * II)
+    if compat == 'full':
+        rows = torch.tensor(TMC_ROWS)[stencil.long().cpu()].sum()
+        nbytes += 4 * JJ * II + es * 3 * int(rows)
+    return nbytes
 
 
 # arithmetic operations per cell of the CPPM kernel on its longest branch
 # (counted from csrc/cppm_sweep.cu): ~210 for the thickness part and the
-# compatible-edge LU solve, ~170 per tracer
+# compatible-edge LU solve, ~170 per tracer.  An upper count for every
+# variant; its time is below the bytes' time in each of them.
 CPPM_OPS_PER_CELL = 210 + 170 * NT
 # per point of the momentum kernel, its three stages with the recomputed
 # stencils (counted from csrc/momtum_uv.cu)
@@ -182,6 +313,10 @@ def bound(nbytes, nops):
     return (tb, 'bytes') if tb >= to else (to, 'operations')
 
 
+CPPM_VARIANTS = (('full', 'non_oscillatory'), ('full', 'monotonic'),
+                 ('partial', 'non_oscillatory'), ('partial', 'monotonic'))
+
+
 def check_cppm(dev, results):
     import torch
     from blom_tpu_torch.dynamics import cppm, cppm_cuda
@@ -190,30 +325,40 @@ def check_cppm(dev, results):
         for ax in (-1, -2):
             for periodic in (False, True):
                 co, args, div = cppm_inputs(ax, periodic, dtype, dev)
-                for d in (None, div):
-                    ref = cppm._cppm_sweep_body(*args, co, periodic, d, ax)
-                    out = cppm_cuda.cppm_sweep_cuda(*args, co, periodic,
-                                                    div_corr=d, ax=ax)
-                    torch.cuda.synchronize()
-                    ok, eabs, erel = compare(out, ref, dtype)
-                    rec = dict(kernel='cppm_sweep', dtype=str(dtype)[6:],
-                               ax=ax, periodic=periodic,
-                               div_corr=d is not None, ok=ok,
-                               max_abs_err=eabs, max_rel_err=erel)
-                    if dtype == torch.float32 and periodic == (ax == -2):
-                        # the main path's sweeps: fuk95 is closed in i and
-                        # periodic in j
-                        rec['ms'] = time_ms(lambda: cppm_cuda.cppm_sweep_cuda(
-                            *args, co, periodic, div_corr=d, ax=ax))
-                        rec['plain_ms'] = time_ms(
-                            lambda: cppm._cppm_sweep_body(
-                                *args, co, periodic, d, ax), reps=5, warm=1)
-                        b, by = bound(cppm_bytes(dtype, d is not None),
-                                      CPPM_OPS_PER_CELL * KK * JJ * II)
-                        rec['bound_ms'], rec['bound_by'] = b, by
-                    emit('kernel_check', **rec)
-                    results.append(rec)
-                    ok_all &= ok
+                for compat, lim in CPPM_VARIANTS:
+                    var = dict(compatibility=compat, limiting=lim)
+                    for d in (None, div):
+                        ref = cppm._cppm_sweep_body(*args, co, periodic, d,
+                                                    ax, **var)
+                        out = cppm_cuda.cppm_sweep_cuda(
+                            *args, co, periodic, div_corr=d, ax=ax, **var)
+                        torch.cuda.synchronize()
+                        ok, eabs, erel = compare(out, ref, dtype)
+                        rec = dict(kernel='cppm_sweep',
+                                   variant=f'{compat}/{lim}',
+                                   dtype=str(dtype)[6:], ax=ax,
+                                   periodic=periodic,
+                                   div_corr=d is not None, ok=ok,
+                                   max_abs_err=eabs, max_rel_err=erel)
+                        if dtype == torch.float32 and periodic == (ax == -2):
+                            # the main path's sweeps: fuk95 is closed in i
+                            # and periodic in j
+                            rec['ms'] = time_ms(
+                                lambda: cppm_cuda.cppm_sweep_cuda(
+                                    *args, co, periodic, div_corr=d, ax=ax,
+                                    **var))
+                            rec['plain_ms'] = time_ms(
+                                lambda: cppm._cppm_sweep_body(
+                                    *args, co, periodic, d, ax, **var),
+                                reps=5, warm=1)
+                            b, by = bound(
+                                cppm_bytes(dtype, d is not None, compat, lim,
+                                           co.stencil),
+                                CPPM_OPS_PER_CELL * KK * JJ * II)
+                            rec['bound_ms'], rec['bound_by'] = b, by
+                        emit('kernel_check', **rec)
+                        results.append(rec)
+                        ok_all &= ok
     return ok_all
 
 
@@ -298,35 +443,39 @@ def stage_ms(call, reps=5):
 def check_momtum(dev, results):
     import torch
     from blom_tpu_torch.dynamics import momtum, momtum_cuda
-    # the main path's parameters, plus nonzero biharmonic and background
-    # viscosities so that every term of the body is exercised
-    par = momtum.MomtumParams(mommth='enscon', mdv2hi=2., mdv2lo=1.,
-                              vsc4hi=.1, vsc4lo=.05)
     tsfac, delt1 = 6. / 360., 360.
     ok_all = True
     for dtype in (torch.float64, torch.float32):
         for periodic_i in (False, True):
             grid, f, d2 = momtum_inputs(periodic_i, dtype, dev)
-            ref = momtum._uv_body(grid, par, f, d2, tsfac, delt1)
-            out = momtum_cuda.momtum_uv_cuda(grid, par, f, d2, tsfac, delt1)
-            torch.cuda.synchronize()
-            ok, eabs, erel = compare(out, ref, dtype)
-            rec = dict(kernel='momtum_uv', dtype=str(dtype)[6:],
-                       periodic_i=periodic_i, ok=ok, max_abs_err=eabs,
-                       max_rel_err=erel)
-            if dtype == torch.float32 and not periodic_i:
-                rec['ms'] = time_ms(lambda: momtum_cuda.momtum_uv_cuda(
-                    grid, par, f, d2, tsfac, delt1))
-                rec['plain_ms'] = time_ms(lambda: momtum._uv_body(
-                    grid, par, f, d2, tsfac, delt1), reps=5, warm=1)
-                b, by = bound(momtum_bytes(dtype),
-                              MOMTUM_OPS_PER_POINT * KK * JJ * II)
-                rec['bound_ms'], rec['bound_by'] = b, by
-                rec['stage_ms'] = stage_ms(lambda: momtum_cuda.momtum_uv_cuda(
-                    grid, par, f, d2, tsfac, delt1))
-            emit('kernel_check', **rec)
-            results.append(rec)
-            ok_all &= ok
+            for mommth in momtum.MOMMTHS:
+                # the main path's parameters with each scheme, plus nonzero
+                # biharmonic and background viscosities so that every term
+                # of the body is exercised
+                par = momtum.MomtumParams(mommth=mommth, mdv2hi=2.,
+                                          mdv2lo=1., vsc4hi=.1, vsc4lo=.05)
+                ref = momtum._uv_body(grid, par, f, d2, tsfac, delt1)
+                out = momtum_cuda.momtum_uv_cuda(grid, par, f, d2, tsfac,
+                                                 delt1)
+                torch.cuda.synchronize()
+                ok, eabs, erel = compare(out, ref, dtype)
+                rec = dict(kernel='momtum_uv', variant=mommth,
+                           dtype=str(dtype)[6:], periodic_i=periodic_i,
+                           ok=ok, max_abs_err=eabs, max_rel_err=erel)
+                if dtype == torch.float32 and not periodic_i:
+                    def call():
+                        return momtum_cuda.momtum_uv_cuda(grid, par, f, d2,
+                                                          tsfac, delt1)
+                    rec['ms'] = time_ms(call)
+                    rec['plain_ms'] = time_ms(lambda: momtum._uv_body(
+                        grid, par, f, d2, tsfac, delt1), reps=5, warm=1)
+                    b, by = bound(momtum_bytes(dtype),
+                                  MOMTUM_OPS_PER_POINT * KK * JJ * II)
+                    rec['bound_ms'], rec['bound_by'] = b, by
+                    rec['stage_ms'] = stage_ms(call)
+                emit('kernel_check', **rec)
+                results.append(rec)
+                ok_all &= ok
     return ok_all
 
 
@@ -390,54 +539,64 @@ def check_ale(dev, results):
     from blom_tpu_torch.core import eos
     from blom_tpu_torch.dynamics import ale, ale_cuda
     e = eos.init_eos(pref=0., expcnf='fuk95')
-    par = ale.make_ale_params(KK)
     delt1 = 360.
+    # (tracer_limiting, velocity_limiting) of the K2 checks: each limiter
+    # for both groups, and the pair of the channel deck B
+    k2_pairs = [(lim, lim) for lim in ale.LIMITERS] + [DECKS['B'][3:]]
     ok_all = True
     for dtype in (torch.float64, torch.float32):
         for ntr in NTR_CHECK:
             x = ale_inputs(dtype, dev, ntr)
-            rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
-                     delt1)
-            ref = ale.regrid_plain(*rargs)
-            if ntr == 0:
-                out = ale_cuda.regrid_cuda(*rargs)
+            for tlim, vlim in k2_pairs:
+                par = ale.make_ale_params(KK)._replace(
+                    tracer_limiting=tlim, velocity_limiting=vlim)
+                rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
+                         delt1)
+                ref = ale.regrid_plain(*rargs)
+                if ntr == 0 and tlim == vlim:
+                    out = ale_cuda.regrid_cuda(*rargs)
+                    torch.cuda.synchronize()
+                    ok, eabs, erel = compare(out, ref, dtype)
+                    rec = dict(kernel='ale_regrid', variant=tlim,
+                               dtype=str(dtype)[6:], ok=ok,
+                               max_abs_err=eabs, max_rel_err=erel)
+                    if dtype == torch.float32:
+                        rec['ms'] = time_ms(
+                            lambda: ale_cuda.regrid_cuda(*rargs))
+                        rec['plain_ms'] = time_ms(
+                            lambda: ale.regrid_plain(*rargs), reps=5,
+                            warm=1)
+                        b, by = bound(ale_bytes(dtype, 'regrid'),
+                                      ale_regrid_ops() * JJ * II)
+                        rec['bound_ms'], rec['bound_by'] = b, by
+                    emit('kernel_check', **rec)
+                    results.append(rec)
+                    ok_all &= ok
+                p_dst = ref[0]
+                margs = (par, x['p'], [x['temp'], x['saln']] + x['trc'],
+                         x['pu'], x['u'], x['pv'], x['v'], p_dst,
+                         p_dst * .98, p_dst * .97)
+                mref = ale.remap_plain(*margs)
+                mout = ale_cuda.remap_cuda(*margs)
                 torch.cuda.synchronize()
-                ok, eabs, erel = compare(out, ref, dtype)
-                rec = dict(kernel='ale_regrid', dtype=str(dtype)[6:], ok=ok,
+                ok, eabs, erel = compare(
+                    list(mout[0]) + [mout[1], mout[2]],
+                    list(mref[0]) + [mref[1], mref[2]], dtype)
+                rec = dict(kernel='ale_remap', variant=f'{tlim}/{vlim}',
+                           dtype=str(dtype)[6:], ntr=ntr, ok=ok,
                            max_abs_err=eabs, max_rel_err=erel)
-                if dtype == torch.float32:
-                    rec['ms'] = time_ms(lambda: ale_cuda.regrid_cuda(*rargs))
+                if dtype == torch.float32 and ntr == 0 and tlim == vlim:
+                    # the main path's configuration: fuk95 and the
+                    # channel carry no tracers
+                    rec['ms'] = time_ms(lambda: ale_cuda.remap_cuda(*margs))
                     rec['plain_ms'] = time_ms(
-                        lambda: ale.regrid_plain(*rargs), reps=5, warm=1)
-                    b, by = bound(ale_bytes(dtype, 'regrid'),
-                                  ale_regrid_ops() * JJ * II)
+                        lambda: ale.remap_plain(*margs), reps=5, warm=1)
+                    b, by = bound(ale_bytes(dtype, 'remap', ntr),
+                                  ale_remap_ops(ntr) * JJ * II)
                     rec['bound_ms'], rec['bound_by'] = b, by
                 emit('kernel_check', **rec)
                 results.append(rec)
                 ok_all &= ok
-            p_dst = ref[0]
-            margs = (par, x['p'], [x['temp'], x['saln']] + x['trc'],
-                     x['pu'], x['u'], x['pv'], x['v'], p_dst, p_dst * .98,
-                     p_dst * .97)
-            mref = ale.remap_plain(*margs)
-            mout = ale_cuda.remap_cuda(*margs)
-            torch.cuda.synchronize()
-            ok, eabs, erel = compare(
-                list(mout[0]) + [mout[1], mout[2]],
-                list(mref[0]) + [mref[1], mref[2]], dtype)
-            rec = dict(kernel='ale_remap', dtype=str(dtype)[6:], ntr=ntr,
-                       ok=ok, max_abs_err=eabs, max_rel_err=erel)
-            if dtype == torch.float32 and ntr == 0:
-                # the main path's configuration: fuk95 carries no tracers
-                rec['ms'] = time_ms(lambda: ale_cuda.remap_cuda(*margs))
-                rec['plain_ms'] = time_ms(lambda: ale.remap_plain(*margs),
-                                          reps=5, warm=1)
-                b, by = bound(ale_bytes(dtype, 'remap', ntr),
-                              ale_remap_ops(ntr) * JJ * II)
-                rec['bound_ms'], rec['bound_by'] = b, by
-            emit('kernel_check', **rec)
-            results.append(rec)
-            ok_all &= ok
     return ok_all
 
 
@@ -452,27 +611,65 @@ def mass(model, dp):
 BENCH_DIFEST = dict(egc=.85, egmndf=100.)     # bench.py:67-69
 
 
-def counters():
-    """The launch counts of every kernel wrapper and the host syncs of
-    the eddy-transport limiter."""
-    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, eddtra
-    from blom_tpu_torch.dynamics import momtum_cuda
+def _counts():
+    """{kernel: the launch counter of its wrapper, keyed by the
+    instantiation it launches}."""
+    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, momtum_cuda
     return {'cppm_sweep': cppm_cuda.launches,
             'momtum_uv': momtum_cuda.launches,
             'ale_regrid': ale_cuda.regrid_launches,
-            'ale_remap': ale_cuda.remap_launches,
-            'host_syncs': eddtra.host_syncs}
+            'ale_remap': ale_cuda.remap_launches}
+
+
+def _key(k):
+    return k if isinstance(k, str) else '/'.join(k)
+
+
+def counters():
+    """The launch counts of every kernel wrapper, {kernel: {instantiation:
+    n}} (CPPM 'compatibility/limiting', momentum scheme, K1 limiter, K2
+    'tracer/velocity' limiters), and the host syncs of the eddy-transport
+    limiter."""
+    from blom_tpu_torch.dynamics import eddtra
+    out = {name: {_key(k): n for k, n in c.items()}
+           for name, c in _counts().items()}
+    out['host_syncs'] = eddtra.host_syncs
+    return out
 
 
 def zero_counters():
-    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, eddtra
-    from blom_tpu_torch.dynamics import momtum_cuda
-    cppm_cuda.launches = momtum_cuda.launches = 0
-    ale_cuda.regrid_launches = ale_cuda.remap_launches = 0
+    from blom_tpu_torch.dynamics import eddtra
+    for c in _counts().values():
+        for k in c:
+            c[k] = 0
     eddtra.host_syncs = 0
 
 
-def run_slice(dev):
+def expected_launches(par):
+    """{kernel: {instantiation: launches per step}} of a step with `par`:
+    two CPPM sweeps, three momentum stage launches, one launch of each
+    ALE kernel when ALE is on; every other instantiation 0."""
+    out = {'cppm_sweep': {f'{par.cppm_compatibility}/{par.cppm_limiting}':
+                          2},
+           'momtum_uv': {par.momtum.mommth: 3},
+           'ale_regrid': {}, 'ale_remap': {}}
+    if par.ale is not None:
+        out['ale_regrid'] = {par.ale.tracer_limiting: 1}
+        out['ale_remap'] = {f'{par.ale.tracer_limiting}/'
+                            f'{par.ale.velocity_limiting}': 1}
+    return out
+
+
+def launches_ok(counts, par, nsteps):
+    exp = expected_launches(par)
+    return all(n == exp[k].get(v, 0) * nsteps
+               for k, per in counts.items() if k != 'host_syncs'
+               for v, n in per.items())
+
+
+def run_slice(dev, paths):
+    """The fuk95 main path; its launch counts go to paths['fuk95'] and,
+    for the adiabatic core, paths['fuk95_core']."""
     import torch
     from blom_tpu_torch.drivers import standalone
     from blom_tpu_torch.dynamics.difest import DifestParams
@@ -487,9 +684,6 @@ def run_slice(dev):
     standalone.run(model, 2)      # warm-up: allocator, first launches
     torch.cuda.synchronize()
     ok_all = True
-    launches = None
-    per_step = {'cppm_sweep': 2, 'momtum_uv': 3, 'ale_regrid': 1,
-                'ale_remap': 1}
     for nsteps in (10, 11):
         zero_counters()
         t0 = time.perf_counter()
@@ -498,18 +692,17 @@ def run_slice(dev):
         wall = time.perf_counter() - t0
         counts = counters()
         syncs = counts.pop('host_syncs')
-        if launches is None:
-            launches = counts
+        paths.setdefault('fuk95', counts)
         ok, rec = slice_gates(model, s, nsteps, mass0)
-        ok &= all(counts[k] == n * nsteps for k, n in per_step.items())
+        ok &= launches_ok(counts, model.par, nsteps)
         emit('slice', steps=nsteps, ok=ok, **rec, launches=counts,
              host_syncs_per_step=syncs / nsteps,
              seconds_per_step=wall / nsteps,
              gridpoints_per_s=II * JJ * KK * nsteps / wall)
         ok_all &= ok
     profile_phases(model)
-    ok_all &= run_core(model, mass0)
-    return ok_all, launches
+    ok_all &= run_core(model, mass0, paths)
+    return ok_all
 
 
 def slice_gates(model, s, nsteps, mass0):
@@ -527,7 +720,7 @@ def slice_gates(model, s, nsteps, mass0):
                     max_saln_dev=saln_dev, max_abs_v=float(s.v.abs().max()))
 
 
-def run_core(model, mass0, nsteps=4):
+def run_core(model, mass0, paths, nsteps=4):
     """The adiabatic dynamical core alone, through the same model."""
     import dataclasses
     import torch
@@ -540,10 +733,10 @@ def run_core(model, mass0, nsteps=4):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counters()
+    counts.pop('host_syncs')
+    paths['fuk95_core'] = counts
     ok, rec = slice_gates(core, s, nsteps, mass0)
-    ok &= (counts['cppm_sweep'] == 2 * nsteps
-           and counts['momtum_uv'] == 3 * nsteps
-           and counts['ale_regrid'] == counts['ale_remap'] == 0)
+    ok &= launches_ok(counts, core.par, nsteps)
     emit('slice_adiabatic_core', steps=nsteps, ok=ok, **rec,
          launches=counts, seconds_per_step=wall / nsteps)
     return ok
@@ -570,6 +763,39 @@ def profile_phases(model, nsteps=4):
          phase_ms=dict(sorted(ms.items(), key=lambda kv: -kv[1])))
 
 
+PARITY_FIELDS = ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx', 'vbflx',
+                 'pgfx', 'pgfy', 'uflx', 'vflx')
+
+
+def worst_field(a, b):
+    """(field, max |a - b| / max |a|) of the field that differs most; a on
+    the CPU, b anywhere."""
+    w = ('', 0.0)
+    for name in PARITY_FIELDS:
+        x = getattr(a, name)
+        y = getattr(b, name).cpu()
+        r = float((x - y).abs().max() / x.abs().max().clamp_min(1e-300))
+        if r > w[1]:
+            w = (name, r)
+    return w
+
+
+def one_step_parity(models, dev):
+    """{parity: worst_field} of one step at each time-level parity from
+    the same state, card against CPU; models = {device: Model}."""
+    from blom_tpu_torch.dynamics import step
+    one_step = {}
+    for m_, n_ in ((0, 1), (1, 0)):
+        out = {}
+        for d, mo in models.items():
+            out[d], _ = step.blom_step(
+                mo.grid, mo.e, mo.par, mo.coeffs_i, mo.coeffs_j,
+                mo.state.clone(), mo.forcing, mo.dfl, m_, n_,
+                mo.clock.delt1, mo.swabs)
+        one_step[f'm{m_}n{n_}'] = worst_field(out['cpu'], out[dev])
+    return one_step
+
+
 def run_parity(dev, nsteps=4):
     """The full step with bench.py's physics at 24x8x8 in f64, on the
     card and on the CPU, from the same initial state.  Gated: one step at
@@ -580,7 +806,6 @@ def run_parity(dev, nsteps=4):
     tests/test_torch_slice.py), so those are not gated."""
     import torch
     from blom_tpu_torch.drivers import standalone
-    from blom_tpu_torch.dynamics import step
     from blom_tpu_torch.dynamics.difest import DifestParams
     models = {}
     for d in (dev, 'cpu'):
@@ -588,37 +813,180 @@ def run_parity(dev, nsteps=4):
                                    kdm=8, device=d)
         m.par = m.par._replace(difest=DifestParams(**BENCH_DIFEST))
         models[d] = m
-
-    def worst(a, b):
-        w = ('', 0.0)
-        for name in ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx',
-                     'vbflx', 'pgfx', 'pgfy', 'uflx', 'vflx'):
-            x = getattr(a, name)
-            y = getattr(b, name).cpu()
-            r = float((x - y).abs().max()
-                      / x.abs().max().clamp_min(1e-300))
-            if r > w[1]:
-                w = (name, r)
-        return w
-
-    one_step = {}
-    for m_, n_ in ((0, 1), (1, 0)):
-        out = {}
-        for d, mo in models.items():
-            out[d], _ = step.blom_step(
-                mo.grid, mo.e, mo.par, mo.coeffs_i, mo.coeffs_j,
-                mo.state.clone(), mo.forcing, mo.dfl, m_, n_,
-                mo.clock.delt1, mo.swabs)
-        one_step[f'm{m_}n{n_}'] = worst(out['cpu'], out[dev])
+    one_step = one_step_parity(models, dev)
     per_step = []
     for k in range(1, nsteps + 1):
         out = {d: standalone.run(mo, k)[0] for d, mo in models.items()}
-        per_step.append(worst(out['cpu'], out[dev]))
+        per_step.append(worst_field(out['cpu'], out[dev]))
     ok = all(r <= STEP_REL for _, r in one_step.values())
     emit('parity_cuda_vs_cpu', ok=ok, tolerance=STEP_REL,
          one_step=one_step, driver_steps=nsteps,
          driver_worst_per_step=per_step)
     return ok
+
+
+# ------------------------------------------------------------------ decks
+
+def deck_path(name, dtype, expcnf):
+    """Write deck `name` for `expcnf` under build/decks/ beside this
+    script."""
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / 'build' / 'decks'
+    path.mkdir(parents=True, exist_ok=True)
+    path = path / f'limits_{expcnf}_{name}_{dtype}'
+    path.write_text(deck_text(name, dtype, expcnf))
+    return str(path)
+
+
+def build_deck_case(cfg, device, **size):
+    """build_case of the deck `cfg` at `size`: for the channel the sizes
+    ITDM, JTDM, KDM of configs/channel.py (build_channel reads them when
+    called), for fuk95 build_fuk95's itdm, jtdm, kdm (its grid spacing
+    stays 650 m at every size, as in bench.py's fuk95)."""
+    import functools
+    from blom_tpu_torch.configs import channel
+    from blom_tpu_torch.drivers import case, standalone
+    if cfg.expcnf == 'fuk95':
+        new = {(standalone, 'build_fuk95'): functools.partial(
+            standalone.build_fuk95, **size)}
+    else:
+        new = {(channel, k): v for k, v in size.items()}
+    old = {t: getattr(*t) for t in new}
+    try:
+        for (mod, k), v in new.items():
+            setattr(mod, k, v)
+        return case.build_case(cfg=cfg, device=device)[0]
+    finally:
+        for (mod, k), v in old.items():
+            setattr(mod, k, v)
+
+
+# Each deck runs as fuk95 at the main path's size in f32 for 2 + 10
+# steps, and as the channel at its full width in f64 for one step (see
+# CHANNEL_KDM).  {expcnf: (dtype, size, warm-up steps, timed steps)}
+DECK_RUNS = {
+    'fuk95': ('float32', dict(itdm=II, jtdm=JJ, kdm=KK), 2, 10),
+    'channel': (CHANNEL_DTYPE, dict(KDM=CHANNEL_KDM), 1, 1),
+}
+
+
+def run_deck(dev, name, expcnf, paths):
+    """Deck `name` as `expcnf` (DECK_RUNS) through build_case and run: the
+    warm-up and then the timed steps, both from the initial state; gates,
+    launches of every (kernel, instantiation), s/step.  For the channel
+    also max |u + ub| within CHANNEL_SPEED and the f64 one-step parity at
+    PARITY_CHANNEL size."""
+    import torch
+    from blom_tpu_torch.core.config import load_limits
+    from blom_tpu_torch.drivers import standalone
+    dtype, size, warmup, nsteps = DECK_RUNS[expcnf]
+    t0 = time.perf_counter()
+    cfg = load_limits(deck_path(name, dtype, expcnf))
+    model = build_deck_case(cfg, dev, **size)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g = model.grid
+    shape = (g.kk,) + tuple(g.shape)
+    mass0 = mass(model, model.state.dp[1])
+    standalone.run(model, warmup)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    syncs = counts.pop('host_syncs')
+    paths[f'{expcnf}_{name}'] = counts
+    ok, rec = slice_gates(model, s, nsteps, mass0)
+    new = 1 if nsteps % 2 == 0 else 0          # slot of the newest level
+    speed = float((s.u[new] + s.ub[new][None]).abs().max())
+    if expcnf == 'channel':
+        ok &= CHANNEL_SPEED[0] < speed < CHANNEL_SPEED[1]
+    ok &= launches_ok(counts, model.par, nsteps)
+    npts = shape[0] * shape[1] * shape[2]
+    emit(f'deck_{expcnf}', deck=name, shape=shape, dtype=cfg.dtype,
+         build_seconds=build_s, warmup_steps=warmup, steps=nsteps, ok=ok,
+         **rec, max_abs_u_plus_ub=speed, launches=counts,
+         host_syncs_per_step=syncs / nsteps,
+         seconds_per_step=wall / nsteps,
+         gridpoints_per_s=npts * nsteps / wall)
+    del model, s
+    if expcnf != 'channel':
+        return ok
+
+    cfg = load_limits(deck_path(name, 'float64', expcnf))
+    models = {d: build_deck_case(cfg, d, **PARITY_CHANNEL)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev)
+    pok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('channel_parity_cuda_vs_cpu', deck=name, ok=pok,
+         tolerance=STEP_REL, size=PARITY_CHANNEL, one_step=one_step)
+    return ok and pok
+
+
+def kernel_summary(results, paths):
+    """The kernels line: one entry per kernel, with its variants.  A
+    kernel's `launches` is the sum of its wrapper's counts on every path.
+    A variant's `launches` are per path.  K2's variants are its three
+    limiters: a K2 launch counts once for each limiter it runs, on the
+    tracers or on the velocities, so its variants' launches can add up to
+    more than the kernel's; `instantiations` gives them per (tracer,
+    velocity) pair."""
+    from blom_tpu_torch.dynamics.ale import LIMITERS
+    from blom_tpu_torch.dynamics.momtum import MOMMTHS
+    out = []
+    for name, src, replaces, main_variant, names in (
+            ('cppm_sweep', 'blom_tpu_torch/csrc/cppm_sweep.cu',
+             'blom_tpu/dynamics/cppm_pallas.py:181',
+             'full/non_oscillatory', [f'{c}/{lim}' for c, lim
+                                      in CPPM_VARIANTS]),
+            ('momtum_uv', 'blom_tpu_torch/csrc/momtum_uv.cu',
+             'blom_tpu/dynamics/momtum_pallas.py:74', 'enscon', MOMMTHS),
+            ('ale_regrid', 'blom_tpu_torch/csrc/ale_regrid.cu',
+             'blom_tpu/dynamics/ale_pallas.py:50', 'non_oscillatory',
+             LIMITERS),
+            ('ale_remap', 'blom_tpu_torch/csrc/ale_remap.cu',
+             'blom_tpu/dynamics/ale_pallas.py:89',
+             'non_oscillatory/non_oscillatory', LIMITERS)):
+        recs = [r for r in results if r['kernel'] == name]
+
+        def runs(key, v):
+            return v in key.split('/') if name == 'ale_remap' else key == v
+        variants = []
+        for v in names:
+            vrecs = [r for r in recs if runs(r['variant'], v)]
+            timed = next(r for r in vrecs if 'ms' in r)
+            variants.append({
+                'name': v,
+                'launches': {p: sum(n for k, n in c[name].items()
+                                    if runs(k, v))
+                             for p, c in paths.items()},
+                'max_abs_err': max(r['max_abs_err'] for r in vrecs
+                                   if r['dtype'] == 'float32'),
+                'max_abs_err_f64': max(r['max_abs_err'] for r in vrecs
+                                       if r['dtype'] == 'float64'),
+                'ms': timed['ms'], 'plain_ms': timed['plain_ms'],
+                'bound_ms': timed['bound_ms'],
+                'bound_by': timed['bound_by']})
+        main = next(r for r in recs
+                    if r['variant'] == main_variant and 'ms' in r)
+        entry = {
+            'name': name, 'route': 'cuda', 'source': src,
+            'replaces': replaces,
+            'launches': sum(sum(c[name].values()) for c in paths.values()),
+            'max_abs_err': max(r['max_abs_err'] for r in recs
+                               if r['dtype'] == 'float32'),
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': None, 'variants': variants}
+        if name == 'ale_remap':
+            entry['instantiations'] = {
+                k: {p: c[name][k] for p, c in paths.items()}
+                for k in next(iter(paths.values()))[name]
+                if any(c[name][k] for c in paths.values())}
+        out.append(entry)
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -653,38 +1021,19 @@ def main():
     ok = check_cppm(dev, results)
     ok &= check_momtum(dev, results)
     ok &= check_ale(dev, results)
-    ok_slice, launches = run_slice(dev)
-    ok &= ok_slice
+    paths = {}
+    ok &= run_slice(dev, paths)
     ok &= run_parity(dev)
+    for expcnf in DECK_RUNS:
+        for name in DECKS:
+            ok &= run_deck(dev, name, expcnf, paths)
 
-    def pick(name, key):
-        recs = [r for r in results
-                if r['kernel'] == name and r['dtype'] == 'float32']
-        return max(r[key] for r in recs)
-
-    def timed(name):
-        return [r for r in results if r['kernel'] == name and 'ms' in r]
-
-    kernels = []
-    for name, src, replaces in (
-            ('cppm_sweep', 'blom_tpu_torch/csrc/cppm_sweep.cu',
-             'blom_tpu/dynamics/cppm_pallas.py:181'),
-            ('momtum_uv', 'blom_tpu_torch/csrc/momtum_uv.cu',
-             'blom_tpu/dynamics/momtum_pallas.py:74'),
-            ('ale_regrid', 'blom_tpu_torch/csrc/ale_regrid.cu',
-             'blom_tpu/dynamics/ale_pallas.py:50'),
-            ('ale_remap', 'blom_tpu_torch/csrc/ale_remap.cu',
-             'blom_tpu/dynamics/ale_pallas.py:89')):
-        rec = timed(name)[0]   # the main path's first configuration
-        kernels.append({
-            'name': name, 'route': 'cuda', 'source': src,
-            'replaces': replaces, 'launches': launches[name],
-            'max_abs_err': pick(name, 'max_abs_err'),
-            'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
-            'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
-            'library_ms': None})
+    kernels = kernel_summary(results, paths)
     print(json.dumps({'kernels': kernels}), flush=True)
-    if any(k['launches'] == 0 for k in kernels):
+    unlaunched = [f"{k['name']}:{v['name']}" for k in kernels
+                  for v in k['variants'] if not any(v['launches'].values())]
+    if unlaunched:
+        print(f'chip_smoke: never launched: {unlaunched}', file=sys.stderr)
         ok = False
     if not ok:
         print('chip_smoke: a phase failed', file=sys.stderr)

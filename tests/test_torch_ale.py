@@ -202,26 +202,38 @@ def test_ale_regrid_remap(ntr):
                                    err_msg=f.name, **TOL)
 
 
-def test_regrid_plain_matches_pallas_k1():
+@pytest.mark.parametrize('limiting', LIMITERS)
+def test_regrid_plain_matches_pallas_k1(limiting):
     # no vanishing layers: next to one, the edge weights reach ~1e297
     # and blom_tpu's Pallas K1 and jnp regrid part ways (ROADMAP §3)
     _, p, t, s, sigmar = _columns(vanish=False)
     je, te = jeos.init_eos(), teos.init_eos()
-    ale = jam.make_ale_params(KK)
+    ale = jam.make_ale_params(KK)._replace(tracer_limiting=limiting)
     j = jnp.asarray
     ref_pd, ref_sf = jap.regrid_call(je, ale, j(p), j(t), j(s), j(sigmar),
                                      1800., interpret=True)
-    pd, sf = tam.regrid_plain(te, tam.make_ale_params(KK), _t(p), _t(t),
-                              _t(s), _t(sigmar), 1800.)
+    pd, sf = tam.regrid_plain(
+        te, tam.make_ale_params(KK)._replace(tracer_limiting=limiting),
+        _t(p), _t(t), _t(s), _t(sigmar), 1800.)
     _close(pd, ref_pd, rtol=1e-11, atol=1e-6)
     _close(sf, ref_sf)
 
 
-@pytest.mark.parametrize('ntr', [0, 5])
-def test_remap_plain_matches_pallas_k2(ntr):
+# (ntr, (tracer_limiting, velocity_limiting)) of the K2 checks: each
+# limiter for both groups and two mixed pairs without passive tracers;
+# five tracers (two chunks of the Pallas kernel) with two of them
+NOSC, POSDEF = th3.NON_OSCILLATORY, th3.NON_OSCILLATORY_POSDEF
+K2_CASES = ([(0, (lim, lim)) for lim in LIMITERS]
+            + [(0, (POSDEF, NOSC)), (0, (th3.MONOTONIC, POSDEF))]
+            + [(5, (NOSC, NOSC)), (5, (POSDEF, NOSC))])
+
+
+@pytest.mark.parametrize('ntr,lims', K2_CASES)
+def test_remap_plain_matches_pallas_k2(ntr, lims):
     rng, p, t, s, sigmar = _columns(vanish=False)
     e = jeos.init_eos()
-    ale = jam.make_ale_params(KK)
+    lim = dict(tracer_limiting=lims[0], velocity_limiting=lims[1])
+    ale = jam.make_ale_params(KK)._replace(**lim)
     j = jnp.asarray
     trc = [rng.uniform(0., 2., (KK, J, I)) for _ in range(ntr)]
     u = rng.uniform(-.3, .3, (KK, J, I))
@@ -236,7 +248,7 @@ def test_remap_plain_matches_pallas_k2(ntr):
     ref = jap.remap_call(ale, *[j(a) if not isinstance(a, list)
                                 else [j(x) for x in a] for a in args],
                          interpret=True)
-    out = tam.remap_plain(tam.make_ale_params(KK),
+    out = tam.remap_plain(tam.make_ale_params(KK)._replace(**lim),
                           *[_t(a) if not isinstance(a, list)
                             else [_t(x) for x in a] for a in args])
     assert len(out[0]) == len(ref[0]) == 2 + ntr
@@ -254,7 +266,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='not on'):
         ale_cuda.remap_cuda(ale, _t(p), [_t(t), _t(s)], _t(p), _t(t),
                             _t(p), _t(t), _t(p), _t(p), _t(p))
-    assert ale_cuda.regrid_launches == ale_cuda.remap_launches == 0
+    assert not any(ale_cuda.regrid_launches.values())
+    assert not any(ale_cuda.remap_launches.values())
 
 
 @pytest.mark.parametrize('change', [dict(regrid_method='direct'),
@@ -265,4 +278,16 @@ def test_unported_ale_options_raise(change):
                                    for f in dataclasses.fields(js)})
     ale = tam.make_ale_params(KK)._replace(**change)
     with pytest.raises(NotImplementedError):
+        tam.ale_regrid_remap(tg, teos.init_eos(), ale, ts, 0, 1, 360.)
+
+
+@pytest.mark.parametrize('change', [dict(tracer_limiting='none'),
+                                    dict(velocity_limiting='posdef')])
+def test_unknown_limiting_raises(change):
+    """Both paths take the three limiters and refuse other names."""
+    jg, tg, js = _state(0)
+    ts = convert.state_from_numpy({f.name: np.asarray(getattr(js, f.name))
+                                   for f in dataclasses.fields(js)})
+    ale = tam.make_ale_params(KK)._replace(**change)
+    with pytest.raises(ValueError, match='limiting'):
         tam.ale_regrid_remap(tg, teos.init_eos(), ale, ts, 0, 1, 360.)

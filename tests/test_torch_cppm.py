@@ -3,8 +3,9 @@
 Same inputs, made from a seed with numpy (the fixture of
 tests/test_cppm_pallas.py, with its land cells), go through
 blom_tpu.dynamics.cppm._cppm_sweep_body and the port's cppm_sweep on
-CPU tensors, in f64.  Both evaluate the same operations in the same
-order, so they agree to rounding: rtol = atol = 1e-12."""
+CPU tensors, in f64, for all four (compatibility, limiting) variants.
+Both evaluate the same operations in the same order, so they agree to
+rounding: rtol = atol = 1e-12."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -36,7 +37,12 @@ def _setup(ax, periodic, nt=3, kk=5, J=12, I=16, seed=0):
     return ip, dx, (h, tm, ca, db, p[:-1], p[1:], ai), div
 
 
-def _both(ax, periodic, with_div, db_ai_3d=False):
+VARIANTS = [('full', 'non_oscillatory'), ('full', 'monotonic'),
+            ('partial', 'non_oscillatory'), ('partial', 'monotonic')]
+
+
+def _both(ax, periodic, with_div, db_ai_3d=False, compat='full',
+          lim='non_oscillatory'):
     torch.set_num_threads(1)
     ip, dx, args, div = _setup(ax, periodic)
     if db_ai_3d:
@@ -49,21 +55,21 @@ def _both(ax, periodic, with_div, db_ai_3d=False):
     with jcm._axis(ax):
         ref = jcm._cppm_sweep_body(
             *[jnp.asarray(a) for a in args], co_j, periodic,
-            None if d is None else jnp.asarray(d), 'full',
-            'non_oscillatory')
+            None if d is None else jnp.asarray(d), compat, lim)
     co_t = tcm.init_cppm_coeffs(ip, dx, axis=ax, periodic=periodic)
     out = tcm.cppm_sweep(*[torch.from_numpy(np.ascontiguousarray(a))
                            for a in args], co_t, periodic,
                          div_corr=None if d is None else torch.from_numpy(d),
-                         ax=ax)
+                         compatibility=compat, limiting=lim, ax=ax)
     return ref, out
 
 
+@pytest.mark.parametrize('compat,lim', VARIANTS)
 @pytest.mark.parametrize('with_div', [False, True])
 @pytest.mark.parametrize('periodic', [True, False])
 @pytest.mark.parametrize('ax', [-1, -2])
-def test_sweep_matches_blom_tpu(ax, periodic, with_div):
-    ref, out = _both(ax, periodic, with_div)
+def test_sweep_matches_blom_tpu(ax, periodic, with_div, compat, lim):
+    ref, out = _both(ax, periodic, with_div, compat=compat, lim=lim)
     for r, o, name in zip(ref, out, ('hn', 'tmn', 'hf', 'htf')):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-12,
                                    atol=1e-12, err_msg=f'{name} ax={ax}')
@@ -91,13 +97,12 @@ def test_init_cppm_coeffs_match_blom_tpu(ax, periodic):
         np.testing.assert_array_equal(b, a, err_msg=name)
 
 
-@pytest.mark.parametrize('compat,lim', [('full', 'monotonic'),
-                                        ('partial', 'non_oscillatory'),
-                                        ('partial', 'monotonic')])
-def test_unported_variants_raise(compat, lim):
+@pytest.mark.parametrize('compat,lim', [('full', 'mono'),
+                                        ('compatible', 'monotonic')])
+def test_unknown_variant_raises(compat, lim):
     ip, dx, args, _ = _setup(-1, True)
     co = tcm.init_cppm_coeffs(ip, dx, axis=-1, periodic=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='cppm'):
         tcm.cppm_sweep(*[torch.from_numpy(np.ascontiguousarray(a))
                          for a in args], co, True, compatibility=compat,
                        limiting=lim)

@@ -1,22 +1,35 @@
 """The port's momentum stencil core (plain PyTorch version) against
-blom_tpu's.
+blom_tpu's, for the three vorticity schemes (enscon, enecon, enedis).
 
 The fixture of tests/test_momtum_pallas.py (random land, closed or
 periodic i, periodic j) and its parameters, with nonzero background and
-biharmonic viscosities, go through blom_tpu.dynamics.momtum._uv_body and
-the port's momtum_uv on CPU tensors, in f64: rtol 1e-12, atol 1e-14."""
+biharmonic viscosities, go through blom_tpu.dynamics.momtum._uv_body
+(its jnp path, and its Pallas kernel momtum_uv_pallas in interpret
+mode) and the port's momtum_uv on CPU tensors, in f64: rtol 1e-12,
+atol 1e-14, test_momtum_pallas.py's tolerance.  The barotropic solver's
+Coriolis terms follow the scheme too; one barotp call per scheme is
+held to 1e-8 relative, the tolerance of tests/test_torch_slice.py
+(blom_tpu compiles the substep loop, where XLA contracts multiply-adds
+in terms that cancel by ~1e6)."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from blom_tpu.core.grid import finish_grid as jax_finish_grid
+from blom_tpu.drivers import standalone as jst
+from blom_tpu.dynamics import barotp as jb
 from blom_tpu.dynamics import momtum as jmo
+from blom_tpu.dynamics.momtum_pallas import momtum_uv_pallas
 from blom_tpu_torch import convert
 from blom_tpu_torch.core.grid import TENSOR_FIELDS
+from blom_tpu_torch.dynamics import barotp as tb
 from blom_tpu_torch.dynamics import momtum as tmo
+
+SCHEMES = ('enscon', 'enecon', 'enedis')
 
 
 def _setup(seed=0, kk=5, jj=12, ii=18, periodic_i=False, periodic_j=True):
@@ -74,30 +87,104 @@ def _setup(seed=0, kk=5, jj=12, ii=18, periodic_i=False, periodic_j=True):
 PARAMS = dict(mdv2hi=2., mdv2lo=1., vsc4hi=.1, vsc4lo=.05)
 
 
-@pytest.mark.parametrize('periodic_i', [True, False])
-def test_uv_body_matches_blom_tpu(periodic_i):
-    torch.set_num_threads(1)
-    jgrid, f, d2 = _setup(periodic_i=periodic_i)
-    tsfac, delt1 = 0.75, 3600.
-    u_ref, v_ref = jmo._uv_body(
-        jgrid, jmo.MomtumParams(mommth='enscon', **PARAMS),
-        jmo.MomtumKIn(**f), jmo.Momtum2DIn(**d2), tsfac, delt1)
-
+def _port_inputs(jgrid, f, d2):
     tgrid = convert.grid_from_numpy(
         {k: np.asarray(getattr(jgrid, k)) for k in TENSOR_FIELDS},
         periodic_i=jgrid.periodic_i, periodic_j=jgrid.periodic_j,
         kk=jgrid.kk)
     t = torch.from_numpy
-    u, v = tmo.momtum_uv(
-        tgrid, tmo.MomtumParams(mommth='enscon', **PARAMS),
-        tmo.MomtumKIn(**{k: t(np.ascontiguousarray(a))
-                         for k, a in f.items()}),
-        tmo.Momtum2DIn(**{k: t(np.ascontiguousarray(a))
-                          for k, a in d2.items()}), tsfac, delt1)
-    np.testing.assert_allclose(u.numpy(), np.asarray(u_ref), rtol=1e-12,
-                               atol=1e-14)
-    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-12,
-                               atol=1e-14)
+    return (tgrid,
+            tmo.MomtumKIn(**{k: t(np.ascontiguousarray(a))
+                             for k, a in f.items()}),
+            tmo.Momtum2DIn(**{k: t(np.ascontiguousarray(a))
+                              for k, a in d2.items()}))
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+@pytest.mark.parametrize('periodic_i', [True, False])
+def test_uv_body_matches_blom_tpu(periodic_i, mommth):
+    """Against the jnp body and the Pallas kernel in interpret mode."""
+    torch.set_num_threads(1)
+    jgrid, f, d2 = _setup(periodic_i=periodic_i)
+    tsfac, delt1 = 0.75, 3600.
+    jpar = jmo.MomtumParams(mommth=mommth, **PARAMS)
+    jf, jd2 = jmo.MomtumKIn(**f), jmo.Momtum2DIn(**d2)
+    refs = (jmo._uv_body(jgrid, jpar, jf, jd2, tsfac, delt1),
+            momtum_uv_pallas(jgrid, jpar, jf, jd2, tsfac, delt1,
+                             interpret=True))
+    tgrid, tf, td2 = _port_inputs(jgrid, f, d2)
+    u, v = tmo.momtum_uv(tgrid, tmo.MomtumParams(mommth=mommth, **PARAMS),
+                         tf, td2, tsfac, delt1)
+    for u_ref, v_ref in refs:
+        np.testing.assert_allclose(u.numpy(), np.asarray(u_ref),
+                                   rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(v.numpy(), np.asarray(v_ref),
+                                   rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+@pytest.mark.parametrize('periodic_i', [True, False])
+def test_coriolis_terms_match_blom_tpu(periodic_i, mommth):
+    """cau/cav from the same velocities, fluxes and vorticity."""
+    torch.set_num_threads(1)
+    jgrid, f, d2 = _setup(periodic_i=periodic_i, seed=1)
+    rng = np.random.default_rng(2)
+    shape = f['u_m'].shape
+    iu, iv = np.asarray(jgrid.iu), np.asarray(jgrid.iv)
+    fields = dict(dp_m=f['dp_m'], utotm=f['u_m'], vtotm=f['v_m'],
+                  uflux0=f['u_m'] * f['dpu_m'],
+                  vflux0=f['v_m'] * f['dpv_m'],
+                  potvor=rng.normal(0., 1e-9, shape))
+    # exact zeros of pv * u pick the mean of the two flux bounds (enedis)
+    fields['potvor'][:, 2, 3:6] = 0.
+    ref = jmo.coriolis_terms(jgrid, *[jnp.asarray(a) for a in fields.values()],
+                             mommth)
+    tgrid, _, _ = _port_inputs(jgrid, f, d2)
+    out = tmo.coriolis_terms(tgrid, *[torch.from_numpy(a)
+                                      for a in fields.values()], mommth)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-12,
+                                   atol=1e-14 * np.abs(np.asarray(r)).max())
+    assert np.abs(np.asarray(ref[0]) * iu).max() > 0.
+    assert np.abs(np.asarray(ref[1]) * iv).max() > 0.
+
+
+@pytest.fixture(scope='module')
+def fuk95_models():
+    torch.set_num_threads(1)
+    from blom_tpu_torch.drivers import standalone as tst
+    size = dict(itdm=24, jtdm=8, kdm=8)
+    return jst.build_fuk95(**size), tst.build_fuk95(device='cpu', **size)
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+def test_barotp_matches_blom_tpu(fuk95_models, mommth):
+    """One barotp call of the fuk95 model with random depth-mean
+    tendencies.  The bottom pressure and the barotropic vorticity are
+    perturbed by up to 10 % and 50 %: with a uniform vorticity the enscon
+    and enecon forms are the same sum, with these the schemes differ by
+    ~2e-4 in the transports."""
+    jm, tm = fuk95_models
+    rng = np.random.default_rng(3)
+    shape = np.asarray(jm.grid.iu).shape
+    js = dataclasses.replace(
+        jm.state, pb=jm.state.pb * rng.uniform(.9, 1.1, shape),
+        pvtrop=jm.state.pvtrop * rng.uniform(.5, 1.5, (2,) + shape))
+    ut = rng.normal(0., 1e-5, shape) * np.asarray(jm.grid.iu)
+    vt = rng.normal(0., 1e-5, shape) * np.asarray(jm.grid.iv)
+    jpar = jm.par.barotp._replace(mommth=mommth)
+    ref = jb.barotp(jm.grid, js, jnp.asarray(ut), jnp.asarray(vt), 0, 1,
+                    jm.par.lstep, jm.par.dlt, jpar)
+    s = convert.state_from_numpy(
+        {fd.name: np.asarray(getattr(js, fd.name))
+         for fd in dataclasses.fields(js)})
+    out = tb.barotp(tm.grid, s, torch.from_numpy(ut), torch.from_numpy(vt),
+                    0, 1, tm.par.lstep, tm.par.dlt,
+                    tm.par.barotp._replace(mommth=mommth))
+    for name in ('pb', 'ubflx', 'vbflx', 'ubflxs_p', 'vbflxs_p', 'pvtrop'):
+        a = np.asarray(getattr(ref, name))
+        b = getattr(out, name).numpy()
+        assert np.abs(a - b).max() <= 1e-8 * np.abs(a).max(), name
 
 
 def test_grid_matches_blom_tpu():
@@ -120,16 +207,9 @@ def test_grid_matches_blom_tpu():
         list(TENSOR_FIELDS)
 
 
-@pytest.mark.parametrize('mommth', ['enecon', 'enedis'])
-def test_unported_schemes_raise(mommth):
+def test_unknown_scheme_raises():
     jgrid, f, d2 = _setup()
-    tgrid = convert.grid_from_numpy(
-        {k: np.asarray(getattr(jgrid, k)) for k in TENSOR_FIELDS},
-        periodic_i=False, periodic_j=True, kk=jgrid.kk)
-    t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
-        tmo.momtum_uv(tgrid, tmo.MomtumParams(mommth=mommth),
-                      tmo.MomtumKIn(**{k: t(np.ascontiguousarray(a))
-                                       for k, a in f.items()}),
-                      tmo.Momtum2DIn(**{k: t(np.ascontiguousarray(a))
-                                        for k, a in d2.items()}), .5, 60.)
+    tgrid, tf, td2 = _port_inputs(jgrid, f, d2)
+    with pytest.raises(ValueError, match='mommth'):
+        tmo.momtum_uv(tgrid, tmo.MomtumParams(mommth='enstrophy'), tf, td2,
+                      .5, 60.)
