@@ -1,12 +1,11 @@
-"""Wrapper of the CUDA momentum stencil kernels (csrc/momtum_uv.cu).
+"""Wrapper of the CUDA momentum stencil kernel (csrc/momtum_uv.cu).
 
 Replaces blom_tpu's Pallas kernel `dynamics/momtum_pallas.py`.  One call
-launches the three stages of the stencil core of `par.mommth` on the
-current stream, in order; `launches` counts stage launches per scheme,
-three per call.  The wrapper checks devices, dtypes, shapes and
-contiguity and allocates the outputs and the staging scratch.  It takes
-CUDA tensors only; `momtum.momtum_uv` sends CPU tensors to the plain
-version."""
+launches the kernel of `par.mommth` once on the current stream; it keeps
+its intermediates in shared memory, tile by tile.  `launches` counts
+launches per scheme.  The wrapper checks devices, dtypes, shapes and
+contiguity and allocates the outputs.  It takes CUDA tensors only;
+`momtum.momtum_uv` sends CPU tensors to the plain version."""
 
 from __future__ import annotations
 
@@ -22,7 +21,9 @@ launches = dict.fromkeys(MOMMTHS, 0)
 METRICS = ('ip', 'iu', 'iv', 'iq', 'scux', 'scuy', 'scvx', 'scvy', 'scuxi',
            'scvyi', 'scu2', 'scv2', 'scp2i', 'scq2i', 'scpx', 'scpy', 'scqx',
            'scqy', 'difmxp', 'difmxq', 'corioq')
-_THREADS = 128
+# points past a tile of u_new, v_new at which the kernel reads the inputs
+# of the tile's outputs (the reach of momtum._uv_body in i and in j)
+HALO = 2
 _DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
@@ -33,9 +34,16 @@ def _lib():
 
 def _fn(dtype):
     fn = getattr(_lib(), f'momtum_uv_{_DTYPES[dtype]}')
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
+
+
+def shared_bytes(dtype, mommth) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes."""
+    fn = _lib().momtum_uv_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return fn(torch.finfo(dtype).bits // 8, MOMMTHS.index(mommth))
 
 
 def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
@@ -65,26 +73,19 @@ def momtum_uv_cuda(grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
         if not t.is_contiguous():
             raise ValueError(f'{name} is not contiguous')
 
-    # the fields the kernel stages between its launches
-    nscratch = _lib().momtum_scratch_fields
-    nscratch.argtypes, nscratch.restype = [ctypes.c_int], ctypes.c_int
-    scratch = torch.empty((nscratch(scheme), kk, J, I), dtype=dtype,
-                          device=dev)
     u_new = torch.empty_like(f.u_m)
     v_new = torch.empty_like(f.v_m)
-    ptrs = [*f, *d2, *planes, scratch, u_new, v_new]
+    ptrs = [*f, *d2, *planes, u_new, v_new]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     dargs = (ctypes.c_double * 10)(
         tsfac, delt1, par.mdv2hi, par.mdv2lo, par.mdv4hi, par.mdv4lo,
         par.vsc2hi, par.vsc2lo, par.vsc4hi, par.vsc4lo)
-    iargs = (ctypes.c_int * 7)(kk, J, I, int(grid.periodic_i),
-                               int(grid.periodic_j), _THREADS, scheme)
+    iargs = (ctypes.c_int * 6)(kk, J, I, int(grid.periodic_i),
+                               int(grid.periodic_j), scheme)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _fn(dtype)
     from ..cuda_build import check
     with torch.cuda.device(dev):
-        for stage in (1, 2, 3):
-            check(fn(ptr_arr, dargs, iargs, stage, stream),
-                  f'momtum_uv stage {stage}')
-            launches[par.mommth] += 1
+        check(fn(ptr_arr, dargs, iargs, stream), 'momtum_uv')
+    launches[par.mommth] += 1
     return u_new, v_new

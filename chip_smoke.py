@@ -9,7 +9,8 @@ Phases, each reported as one JSON line; any failure exits nonzero:
 2. build: the four CUDA sources compiled by nvcc for sm_90a from
    blom_tpu_torch/csrc (one nvcc each, all at once; every variant is an
    instantiation of its kernel's template), with ptxas registers, stack
-   frames and spills of every instantiation;
+   frames, spills and static shared memory of every instantiation, and
+   the dynamic shared memory of a block of each momentum instantiation;
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
    two CPPM tracers; the ALE remap with ntr 0 and 5): the CPPM sweep in
@@ -19,14 +20,14 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    channel deck B), in f64 (rtol = atol = 1e-12) and in f32 (max |err| <=
    F32_REL * max |ref| per output); median time of the kernel and of the
    plain version from CUDA events, the bound from the bytes each call
-   must move and the operations its loops do, and the device time of
-   each momentum stage from torch.profiler;
+   must move and the operations its loops do, and the momentum kernel's
+   own device time from torch.profiler;
 4. slice: the full fuk95 step (ALE regrid/remap, lateral and vertical
    mixing) with bench.py's physics at 384x360x53 in f32 through
    build_fuk95 and run, for 10 and for 11 steps after a warm-up: finite
    fields, mass drift, salinity near 35 (SALN_DEV_ALE), launch counts
-   (CPPM 2, momentum 3 stage launches, ALE regrid 1 and ALE remap 1 per
-   step, all in the main path's variants), the eddy-transport limiter's
+   (CPPM 2, momentum 1, ALE regrid 1 and ALE remap 1 per step, all in
+   the main path's variants), the eddy-transport limiter's
    host syncs per step, seconds per step and grid-points/s; then the
    device time of each phase of the step, from the events blom_step
    records; then the adiabatic core alone (par._replace(ale=None,
@@ -155,9 +156,8 @@ def card_line():
     return out[0]
 
 
-KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_stage1', 'momtum_stage2',
-                'momtum_stage3', 'ale_regrid_kernel', 'ale_remap_kernel',
-                'remap_group')
+KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_uv_kernel', 'ale_regrid_kernel',
+                'ale_remap_kernel', 'remap_group')
 
 
 def short_name(mangled):
@@ -176,9 +176,11 @@ def short_name(mangled):
 
 
 def ptxas_summary(log):
-    """{function: {'registers': n, 'stack_frame': b, 'spill_stores': b,
-    'spill_loads': b}} from nvcc's -Xptxas -v output, for every kernel
-    instantiation and every device function compiled on its own."""
+    """{function: {'registers': n, 'static_smem': b, 'stack_frame': b,
+    'spill_stores': b, 'spill_loads': b}} from nvcc's -Xptxas -v output,
+    for every kernel instantiation and every device function compiled on
+    its own.  Dynamic shared memory is sized at launch (momentum:
+    momentum_smem; CPPM: by the line length of the call)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line) or \
@@ -193,6 +195,8 @@ def ptxas_summary(log):
         m = re.search(r'Used (\d+) registers', line)
         if m and name:
             out.setdefault(name, {})['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', line)
+            out[name]['static_smem'] = int(m.group(1)) if m else 0
         m = re.search(r'(\d+) bytes stack frame', line)
         if m and name:
             out.setdefault(name, {})['stack_frame'] = int(m.group(1))
@@ -302,9 +306,13 @@ def cppm_bytes(dtype, has_div, compat, lim, stencil):
 # compatible-edge LU solve, ~170 per tracer.  An upper count for every
 # variant; its time is below the bytes' time in each of them.
 CPPM_OPS_PER_CELL = 210 + 170 * NT
-# per point of the momentum kernel, its three stages with the recomputed
-# stencils (counted from csrc/momtum_uv.cu)
-MOMTUM_OPS_PER_POINT = 1500
+# per point of the momentum kernel, each intermediate once (counted from
+# csrc/momtum_uv.cu, a division or square root as one): ~62 for the total
+# velocities, weights and dpmx, ~78 for dl2u/dl2v, potvor, defor1/2 and
+# ke, 54 for the viscosities, 50 for uflux1/vflux1, ~220 for the update
+# of u and v in enscon; enedis adds ~60 for its flux bounds and upwind
+# selection.  The count of enedis, for every scheme.
+MOMTUM_OPS_PER_POINT = 525
 
 
 def bound(nbytes, nops):
@@ -423,21 +431,28 @@ def momtum_bytes(dtype):
     return es * ((17 + 2) * KK * JJ * II + (12 + 21) * JJ * II)
 
 
-def stage_ms(call, reps=5):
-    """Device milliseconds per call of each momentum stage kernel, from
-    torch.profiler (empty if the profiler sees no device time)."""
+def profiler_ms(call, kernel, reps=5):
+    """Device milliseconds per call of the kernels whose name holds
+    `kernel`, from torch.profiler (None if it sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        m = re.search(r'momtum_stage(\d)', ev.key)
-        if m and ev.device_time_total > 0:
-            out[f'stage{m.group(1)}'] = ev.device_time_total / 1e3 / reps
-    return dict(sorted(out.items()))
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if kernel in ev.key)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def momentum_smem():
+    """{instantiation: bytes} of dynamic shared memory per block of each
+    momentum kernel instantiation."""
+    import torch
+    from blom_tpu_torch.dynamics import momtum, momtum_cuda
+    return {f'momtum_uv_kernel<{t},{n}>': momtum_cuda.shared_bytes(dt, m)
+            for t, dt in (('f', torch.float32), ('d', torch.float64))
+            for n, m in enumerate(momtum.MOMMTHS)}
 
 
 def check_momtum(dev, results):
@@ -472,7 +487,8 @@ def check_momtum(dev, results):
                     b, by = bound(momtum_bytes(dtype),
                                   MOMTUM_OPS_PER_POINT * KK * JJ * II)
                     rec['bound_ms'], rec['bound_by'] = b, by
-                    rec['stage_ms'] = stage_ms(call)
+                    rec['profiler_ms'] = profiler_ms(call,
+                                                     'momtum_uv_kernel')
                 emit('kernel_check', **rec)
                 results.append(rec)
                 ok_all &= ok
@@ -647,11 +663,11 @@ def zero_counters():
 
 def expected_launches(par):
     """{kernel: {instantiation: launches per step}} of a step with `par`:
-    two CPPM sweeps, three momentum stage launches, one launch of each
-    ALE kernel when ALE is on; every other instantiation 0."""
+    two CPPM sweeps, one momentum launch, one launch of each ALE kernel
+    when ALE is on; every other instantiation 0."""
     out = {'cppm_sweep': {f'{par.cppm_compatibility}/{par.cppm_limiting}':
                           2},
-           'momtum_uv': {par.momtum.mommth: 3},
+           'momtum_uv': {par.momtum.mommth: 1},
            'ale_regrid': {}, 'ale_remap': {}}
     if par.ale is not None:
         out['ale_regrid'] = {par.ale.tracer_limiting: 1}
@@ -1015,7 +1031,8 @@ def main():
     info = cuda_build.build_all()
     emit('build', seconds=time.perf_counter() - t0,
          nvcc_seconds={k: v['seconds'] for k, v in info.items()},
-         ptxas={k: ptxas_summary(v['ptxas']) for k, v in info.items()})
+         ptxas={k: ptxas_summary(v['ptxas']) for k, v in info.items()},
+         dynamic_smem={'momtum_uv': momentum_smem()})
 
     results = []
     ok = check_cppm(dev, results)

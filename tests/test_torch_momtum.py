@@ -213,3 +213,62 @@ def test_unknown_scheme_raises():
     with pytest.raises(ValueError, match='mommth'):
         tmo.momtum_uv(tgrid, tmo.MomtumParams(mommth='enstrophy'), tf, td2,
                       .5, 60.)
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+@pytest.mark.parametrize('periodic_i', [True, False])
+def test_uv_body_reach_within_kernel_halo(periodic_i, mommth):
+    """The CUDA kernel computes a tile of u_new, v_new from its inputs on a
+    ring of momtum_cuda.HALO points around the tile.  Each input of the
+    plain body (every MomtumKIn and Momtum2DIn field, every metric plane
+    the kernel reads) perturbed at a few wet interior points changes the
+    outputs only within HALO points in i and in j, and the widest change
+    seen reaches HALO in both."""
+    from blom_tpu_torch.dynamics import momtum_cuda
+    torch.set_num_threads(1)
+    n = 28
+    jgrid, f, d2 = _setup(seed=4, kk=1, jj=n, ii=n, periodic_i=periodic_i)
+    tgrid, tf, td2 = _port_inputs(jgrid, f, d2)
+    par = tmo.MomtumParams(mommth=mommth, **PARAMS)
+    tsfac, delt1 = 0.75, 3600.
+
+    def body(grid, kin, d2in):
+        return torch.stack(tmo._uv_body(grid, par, kin, d2in, tsfac, delt1))
+
+    base = body(tgrid, tf, td2)
+    rng = np.random.default_rng(5)
+    ip = np.asarray(jgrid.ip)
+    wet = np.argwhere(ip[4:n - 4, 4:n - 4] > 0) + 4
+    jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing='ij')
+
+    def cyclic(d):
+        d = np.abs(d)
+        return np.minimum(d, n - d)
+
+    def perturbed(t, j, i):
+        t = t.clone()
+        t[..., j, i] += 1e-3 * (t[..., j, i].abs() + t.abs().mean())
+        return t
+
+    fields = ([('kin', name) for name in tmo.MomtumKIn._fields]
+              + [('d2', name) for name in tmo.Momtum2DIn._fields]
+              + [('grid', name) for name in momtum_cuda.METRICS])
+    reach = np.zeros(2, int)
+    for kind, name in fields:
+        for j, i in wet[rng.choice(len(wet), 3, replace=False)]:
+            kin, d2in, grid = tf, td2, tgrid
+            if kind == 'kin':
+                kin = tf._replace(**{name: perturbed(getattr(tf, name), j, i)})
+            elif kind == 'd2':
+                d2in = td2._replace(
+                    **{name: perturbed(getattr(td2, name), j, i)})
+            else:
+                grid = dataclasses.replace(
+                    tgrid, **{name: perturbed(getattr(tgrid, name), j, i)})
+            changed = (body(grid, kin, d2in) != base).any(0).any(0).numpy()
+            if changed.any():
+                far = (cyclic(jj[changed] - j).max(),
+                       cyclic(ii[changed] - i).max())
+                assert max(far) <= momtum_cuda.HALO, (name, j, i, far)
+                reach = np.maximum(reach, far)
+    assert tuple(reach) == (momtum_cuda.HALO, momtum_cuda.HALO)
