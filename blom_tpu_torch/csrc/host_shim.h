@@ -1,0 +1,147 @@
+// A host shim that lets g++ compile and run the CUDA kernels of this
+// directory on the CPU, for tests on machines without nvcc or a card.
+//
+// Use: put a file named cuda_runtime.h that includes this one on the
+// include path, rewrite every launch `kern<<<blocks, threads, smem,
+// stream>>>(args);` into `shim_launch(kern, blocks, threads, smem,
+// args);` and every `extern __shared__ ... name[];` into
+// `unsigned char *name = shim_shared();` (tests/test_torch_ale_host.py
+// does both with regular expressions), then build with
+// `g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC -pthread`.
+//
+// A launch runs its blocks one after another.  By default a block runs
+// with one thread (blockDim.x = 1), which gives a kernel's result
+// whenever each of its stages is a loop over the block's points with
+// stride blockDim.x, the stages separated by __syncthreads() (a no-op
+// here).  After shim_set_block_threads(-1) a block runs the launch's own
+// thread count as that many host threads that meet at a real barrier in
+// __syncthreads() (build with -pthread): this checks the kernel's
+// mapping of points to threads, which one thread per block cannot, and
+// runs a kernel without barriers that needs its own thread count.  Dynamic shared memory is filled with 0xFF bytes
+// (NaN in float and double) before each block, so that a read of a
+// point no stage wrote shows in the result.
+//
+// Device pointers are host pointers here.
+
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __host__
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+
+typedef int cudaError_t;
+typedef void *cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+};
+
+static thread_local dim3 threadIdx;
+static dim3 blockIdx, blockDim, gridDim;
+static int shim_block_threads = 1;
+static std::vector<unsigned char> shim_smem;
+
+// 1: one thread per block; -1: the launch's threads, as host threads
+extern "C" void shim_set_block_threads(int n) { shim_block_threads = n; }
+
+// the block's barrier when its threads are host threads
+struct ShimBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 1, count = 0;
+  long gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(m);
+    const long g = gen;
+    if (++count == n) {
+      count = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != g; });
+    }
+  }
+};
+static ShimBarrier shim_barrier;
+
+// opt-in shared memory per block of an H100
+static const int kShimSharedOptin = 232448;
+
+inline void __syncthreads() {
+  if (shim_block_threads < 0) shim_barrier.wait();
+}
+
+inline unsigned char *shim_shared() { return shim_smem.data(); }
+
+inline int atomicMax(int *a, int v) {
+  int old = __atomic_load_n(a, __ATOMIC_RELAXED);
+  while (old < v && !__atomic_compare_exchange_n(a, &old, v, true,
+                                                 __ATOMIC_RELAXED,
+                                                 __ATOMIC_RELAXED)) {
+  }
+  return old;
+}
+
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+inline cudaError_t cudaGetDevice(int *dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+
+inline cudaError_t cudaDeviceGetAttribute(int *value, int attr, int) {
+  *value = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin
+               ? kShimSharedOptin : 0;
+  return cudaSuccess;
+}
+
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, int attr, int value) {
+  return attr == cudaFuncAttributeMaxDynamicSharedMemorySize
+                 && value > kShimSharedOptin
+             ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+template <typename F, typename... A>
+void shim_launch(F kern, int blocks, int threads, size_t smem,
+                 const A &...args) {
+  const int nth = shim_block_threads < 0 ? threads : 1;
+  gridDim.x = blocks;
+  blockDim.x = nth;
+  shim_barrier.n = nth;
+  shim_smem.assign(smem > 0 ? smem : 1, 0xFF);
+  for (int b = 0; b < blocks; ++b) {
+    blockIdx.x = b;
+    memset(shim_smem.data(), 0xFF, shim_smem.size());
+    if (shim_block_threads < 0) {
+      std::vector<std::thread> pool;
+      for (int t = 0; t < nth; ++t)
+        pool.emplace_back([&, t] {
+          threadIdx.x = t;
+          kern(args...);
+        });
+      for (auto &th : pool) th.join();
+      continue;
+    }
+    for (int t = 0; t < nth; ++t) {
+      threadIdx.x = t;
+      kern(args...);
+    }
+  }
+}

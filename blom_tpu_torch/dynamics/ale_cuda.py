@@ -7,7 +7,9 @@ shapes and contiguity, allocates the outputs, launches on the current
 stream and counts its launches per instantiation: `regrid_launches` by
 the tracer limiter of the T/S reconstruction, `remap_launches` by the
 (tracer, velocity) limiter pair.  Both kernels take
-the three limiters of ops/hor3map.py.  They take CUDA tensors only;
+the three limiters of ops/hor3map.py.  K1 takes up to KMAX levels; K2
+takes any number of tracers and as many levels as its tile fits in the
+device's shared memory (`remap_kk_max`).  They take CUDA tensors only;
 `ale.ale_regrid_remap` sends CPU tensors to the plain versions
 `ale.regrid_plain` and `ale.remap_plain`."""
 
@@ -22,8 +24,7 @@ from .ale import LIMITERS, check_ale
 regrid_launches = dict.fromkeys(LIMITERS, 0)
 remap_launches = {(t, v): 0 for t in LIMITERS for v in LIMITERS}
 
-KMAX = 64      # ALE_KMAX of csrc/ppm_column.cuh
-MAXNT = 32     # ALE_MAXNT of csrc/ale_remap.cu
+KMAX = 64      # ALE_KMAX of csrc/ppm_column.cuh (K1)
 
 _DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
 
@@ -51,10 +52,11 @@ def _check(ale, named, ref):
             raise ValueError(f'{name} is not contiguous')
 
 
-def _shapes(kk, J, I, k1, k0):
-    """Raise unless the (kk+1)- and kk-level fields have their shapes."""
-    if not 3 <= kk <= KMAX:
-        raise ValueError(f'kk={kk} is outside [3, {KMAX}]')
+def _shapes(kk, J, I, k1, k0, kmax=KMAX):
+    """Raise unless 3 <= kk <= kmax and the (kk+1)- and kk-level fields
+    have their shapes."""
+    if not 3 <= kk <= kmax:
+        raise ValueError(f'kk={kk} is outside [3, {kmax}]')
     for shape, fields in (((kk + 1, J, I), k1), ((kk, J, I), k0)):
         for name, t in fields.items():
             if tuple(t.shape) != shape:
@@ -95,25 +97,52 @@ def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
     return p_dst, sfac
 
 
+def _remap_lib():
+    from ..cuda_build import library
+    return library('ale_remap')
+
+
+def remap_shared_bytes(dtype, kk):
+    """Dynamic shared memory of one K2 block at kk levels."""
+    fn = _remap_lib().ale_remap_shared_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(kk, int(dtype == torch.float64))
+
+
+def remap_kk_max(dtype, device):
+    """The largest kk K2 takes in `dtype` on `device`: what its tile fits
+    in the device's opt-in shared memory per block."""
+    fn = _remap_lib().ale_remap_kk_max
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    return fn(int(dtype == torch.float64), limit)
+
+
 def remap_cuda(ale, p_src, tms, pu_q, u, pv_q, v, p_dst, pu_new, pv_new):
     """Same contract as ale.remap_plain, on the card: (means, u_mean,
-    v_mean) with one mean per tracer of tms."""
+    v_mean) with one mean per tracer of tms, any number of them."""
     kk1, J, I = p_src.shape
     kk = kk1 - 1
     nt = len(tms)
-    if nt > MAXNT:
-        raise ValueError(f'{nt} tracers, the kernel takes up to {MAXNT}')
     k1 = {'p_src': p_src, 'pu_q': pu_q, 'pv_q': pv_q, 'p_dst': p_dst,
           'pu_new': pu_new, 'pv_new': pv_new}
     k0 = {'u': u, 'v': v, **{f'tms[{t}]': tm for t, tm in enumerate(tms)}}
     _check(ale, {**k1, **k0}, p_src)
-    _shapes(kk, J, I, k1, k0)
+    _shapes(kk, J, I, k1, k0, remap_kk_max(p_src.dtype, p_src.device))
 
     u_out = torch.empty_like(u)
     v_out = torch.empty_like(v)
     means = [torch.empty_like(tm) for tm in tms]
-    tensors = [p_src, pu_q, u, pv_q, v, p_dst, pu_new, pv_new, u_out,
-               v_out] + list(tms) + means
+    # the fields' addresses, which the kernel reads from the card; copied
+    # from pinned memory on the stream, so the host does not wait
+    fields = list(tms) + [u, v] + means + [u_out, v_out]
+    table = torch.tensor([t.data_ptr() for t in fields],
+                         dtype=torch.int64).pin_memory().to(
+                             p_src.device, non_blocking=True)
+    tensors = [p_src, pu_q, pv_q, p_dst, pu_new, pv_new, table]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr()
                                               for t in tensors])
     iargs = (ctypes.c_int * 7)(kk, J * I, nt, int(ale.tracer_pc_upper),

@@ -10,12 +10,16 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    blom_tpu_torch/csrc (one nvcc each, all at once; every variant is an
    instantiation of its kernel's template), with ptxas registers, stack
    frames, spills and static shared memory of every instantiation, and
-   the dynamic shared memory of a block of each momentum instantiation;
+   the dynamic shared memory of a block of each momentum instantiation
+   and of K2 at the main path's kk; it fails if an instantiation of K2
+   has a stack frame or spills (its columns live in shared memory);
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
-   two CPPM tracers; the ALE remap with ntr 0 and 5): the CPPM sweep in
-   its four (compatibility, limiting) variants on both axes, the
-   momentum core in its three schemes, ALE K1 and K2 with each of the
+   two CPPM tracers; the ALE remap with ntr 0 and 5, and 37 for the main
+   path's limiters: many chunks of fields, beyond any fixed cap on the
+   tracers): the CPPM sweep in its four (compatibility, limiting)
+   variants on both axes, the momentum core in its three schemes, ALE
+   K1 and K2 with each of the
    three limiters (K2 also with the tracer and velocity limiters of the
    channel deck B), in f64 (rtol = atol = 1e-12) and in f32 (max |err| <=
    F32_REL * max |ref| per output); median time of the kernel and of the
@@ -73,7 +77,8 @@ STEP_REL = 1e-5         # whole-step parity tolerance (see tests)
 # f32 gives the same 2.4e-4 after one step at 96x32x53)
 SALN_DEV = 1e-4
 SALN_DEV_ALE = 5e-3
-NTR_CHECK = (0, 5)      # tracer counts of the ALE remap check
+NTR_CHECK = (0, 5, 37)  # tracer counts of the ALE remap check
+NTR_MANY = 37           # of those, checked in the main path's pair only
 # The channel as blom_tpu builds it (ROADMAP section 3, each shown by
 # blom_tpu itself on the CPU): with its 30 layers the initial sigma
 # ladder reaches sigma 30.5, beyond the EOS at S = 35, so the initial
@@ -157,7 +162,7 @@ def card_line():
 
 
 KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_uv_kernel', 'ale_regrid_kernel',
-                'ale_remap_kernel', 'remap_group')
+                'ale_remap_kernel')
 
 
 def short_name(mangled):
@@ -455,6 +460,25 @@ def momentum_smem():
             for n, m in enumerate(momtum.MOMMTHS)}
 
 
+def remap_smem():
+    """{instantiation type: bytes} of dynamic shared memory per block of
+    K2 at the main path's kk."""
+    import torch
+    from blom_tpu_torch.dynamics import ale_cuda
+    return {f'ale_remap_kernel<{t}>': ale_cuda.remap_shared_bytes(dt, KK)
+            for t, dt in (('f', torch.float32), ('d', torch.float64))}
+
+
+def remap_frames_ok(ptxas):
+    """All 18 instantiations of K2 (9 limiter pairs, f32 and f64) with
+    no stack frame and no spills."""
+    k2 = {k: v for k, v in ptxas.get('ale_remap', {}).items()
+          if k.startswith('ale_remap_kernel<')}
+    return len(k2) == 18 and all(
+        v.get('stack_frame', 0) == 0 and v.get('spill_stores', 0) == 0
+        and v.get('spill_loads', 0) == 0 for v in k2.values())
+
+
 def check_momtum(dev, results):
     import torch
     from blom_tpu_torch.dynamics import momtum, momtum_cuda
@@ -522,7 +546,8 @@ def ale_inputs(dtype, dev, ntr=0):
 
 
 # arithmetic operations per column, counted from the loops of
-# csrc/ale_regrid.cu and csrc/ale_remap.cu (with csrc/ppm_column.cuh):
+# csrc/ale_regrid.cu and csrc/ale_remap.cu (with csrc/ppm_column.cuh
+# and csrc/ppm_tile.cuh):
 # ~90 per edge for the weights, 7 per edge and field for the edge value,
 # ~20 per cell and field for the limiter tests and the coefficients, ~40
 # per cell for the two densities, ~10 per interface for the regime
@@ -563,7 +588,9 @@ def check_ale(dev, results):
     for dtype in (torch.float64, torch.float32):
         for ntr in NTR_CHECK:
             x = ale_inputs(dtype, dev, ntr)
-            for tlim, vlim in k2_pairs:
+            pairs = k2_pairs if ntr != NTR_MANY else [
+                ('non_oscillatory', 'non_oscillatory')]
+            for tlim, vlim in pairs:
                 par = ale.make_ale_params(KK)._replace(
                     tracer_limiting=tlim, velocity_limiting=vlim)
                 rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
@@ -997,6 +1024,7 @@ def kernel_summary(results, paths):
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
             'library_ms': None, 'variants': variants}
         if name == 'ale_remap':
+            entry['dynamic_smem'] = remap_smem()
             entry['instantiations'] = {
                 k: {p: c[name][k] for p, c in paths.items()}
                 for k in next(iter(paths.values()))[name]
@@ -1029,13 +1057,17 @@ def main():
 
     t0 = time.perf_counter()
     info = cuda_build.build_all()
+    ptxas = {k: ptxas_summary(v['ptxas']) for k, v in info.items()}
+    frames_ok = remap_frames_ok(ptxas)
     emit('build', seconds=time.perf_counter() - t0,
          nvcc_seconds={k: v['seconds'] for k, v in info.items()},
-         ptxas={k: ptxas_summary(v['ptxas']) for k, v in info.items()},
-         dynamic_smem={'momtum_uv': momentum_smem()})
+         ptxas=ptxas, ale_remap_no_stack_no_spills=frames_ok,
+         dynamic_smem={'momtum_uv': momentum_smem(),
+                       'ale_remap': remap_smem()})
 
     results = []
-    ok = check_cppm(dev, results)
+    ok = frames_ok
+    ok &= check_cppm(dev, results)
     ok &= check_momtum(dev, results)
     ok &= check_ale(dev, results)
     paths = {}

@@ -221,11 +221,12 @@ def test_regrid_plain_matches_pallas_k1(limiting):
 
 # (ntr, (tracer_limiting, velocity_limiting)) of the K2 checks: each
 # limiter for both groups and two mixed pairs without passive tracers;
-# five tracers (two chunks of the Pallas kernel) with two of them
+# five tracers (two chunks of the Pallas kernel) with two of them; 33
+# tracers (nine chunks; more than a CUDA K2 with a cap of 32 would take)
 NOSC, POSDEF = th3.NON_OSCILLATORY, th3.NON_OSCILLATORY_POSDEF
 K2_CASES = ([(0, (lim, lim)) for lim in LIMITERS]
             + [(0, (POSDEF, NOSC)), (0, (th3.MONOTONIC, POSDEF))]
-            + [(5, (NOSC, NOSC)), (5, (POSDEF, NOSC))])
+            + [(5, (NOSC, NOSC)), (5, (POSDEF, NOSC)), (33, (NOSC, NOSC))])
 
 
 @pytest.mark.parametrize('ntr,lims', K2_CASES)
