@@ -74,8 +74,6 @@
 // The tracers take the tracer limiter, u and v the velocity limiter,
 // both template parameters of the kernel: nine instantiations per type.
 
-#include <float.h>
-
 #include "ppm_tile.cuh"
 
 namespace {
@@ -95,12 +93,10 @@ constexpr int THREADS = 256;
 template <typename T>
 struct Tile {
   static constexpr int TC = TC_F64, NF = NF_F64, MINB = MINB_F64;
-  static constexpr T eps = DBL_EPSILON;
 };
 template <>
 struct Tile<float> {
   static constexpr int TC = TC_F32, NF = NF_F32, MINB = MINB_F32;
-  static constexpr float eps = FLT_EPSILON;
 };
 
 template <typename T>
@@ -185,30 +181,6 @@ __device__ __forceinline__ T part_term(T dxr, T x, T c0, T c1, T c2) {
   return dxr * poly;
 }
 
-// A source layer kf' <= the first layer that is not full at pq, for a
-// column whose interfaces p[0..kk-1] do not decrease: one at or above
-// t = pq - m (source note), the deepest after a walk on from `from`
-// when p[from] <= t, else after a binary search; 0 when p[0] > t.
-template <typename T, int TC>
-__device__ __forceinline__ int full_below(Lev<T, TC> p, int kk, T pq,
-                                          int from) {
-  const T t = pq - (T(8) * Tile<T>::eps * (fab(pq) + fab(p[0]))
-                    + T(4 * kHeps));
-  if (!(p[0] <= t)) return 0;
-  int lo = from;
-  if (!(from >= 0 && p[from] <= t)) {
-    lo = 0;
-    int hi = kk - 1;                  // p[lo] <= t
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (p[mid] <= t) lo = mid;
-      else hi = mid - 1;
-    }
-  }
-  while (lo + 1 < kk && p[lo + 1] <= t) ++lo;
-  return lo;
-}
-
 // The integral of field (c0, c1, c2) from the column top to pq, as the
 // plain version sums it.  kf: on entry the previous edge's start (-1 for
 // none), on exit this edge's.
@@ -232,7 +204,7 @@ __device__ __forceinline__ T edge_integral(Lev<T, TC> p, Lev<T, TC> dxi,
     kf = -1;
     return acc;
   }
-  kf = mono ? full_below(p, kk, pq, kf) : 0;
+  kf = mono ? clear_above(p, kk, pq, kf) : 0;
   acc = S[kf];
 #pragma unroll 1
   for (int k = kf; k < kk; ++k) {

@@ -98,6 +98,15 @@ inline int atomicMax(int *a, int v) {
   return old;
 }
 
+inline int atomicMin(int *a, int v) {
+  int old = __atomic_load_n(a, __ATOMIC_RELAXED);
+  while (old > v && !__atomic_compare_exchange_n(a, &old, v, true,
+                                                 __ATOMIC_RELAXED,
+                                                 __ATOMIC_RELAXED)) {
+  }
+  return old;
+}
+
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 inline cudaError_t cudaGetDevice(int *dev) {

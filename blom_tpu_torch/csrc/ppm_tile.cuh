@@ -1,14 +1,29 @@
 // PPM reconstruction of a tile of columns held in shared memory as
-// [k][column] arrays, one (k, column) point per thread: the stages of
-// ppm_column.cuh's edge_weights, edge_value and limit_and_fit, split at
-// the points where one cell reads what another wrote.
+// [k][column] arrays, one (k, column) point per thread, shared by the ALE
+// kernels (ale_regrid.cu, ale_remap.cu).
 //
-// Plain version: blom_tpu_torch/ops/hor3map.py ppm_reconstruct (as for
-// ppm_column.cuh).  Every expression is ppm_column.cuh's, with its
-// operation order; only the thread that evaluates it changes.  A stage
-// that reads a neighbour's value written by an earlier stage runs after
-// a __syncthreads() that separates the two.  The order of the limiter's
-// steps on one column is the plain version's:
+// Plain version: blom_tpu_torch/ops/hor3map.py, ppm_reconstruct with its
+// three limiters (edge4_weights, _edge4, _limit_mono / _limit_nosc,
+// _limit_boundary, _limit_posdef, the piecewise-constant mask, the
+// coefficients).  'monotonic' applies the slope clamp and the extremum
+// limit at every interior cell, 'non_oscillatory' only where the
+// curvature changes sign, and 'non_oscillatory_posdef' adds the
+// positive-definite fix of every cell after the boundary cells.  Each
+// expression below is that code's, with its operation order, split at
+// the points where one cell reads what another wrote.  Where the plain
+// version computes several branches and selects one with `where` (the
+// three edge stencils, the limiter cases), only the selected branch is
+// evaluated here; it gives the same selected value.  A division of a
+// tensor by a Python constant runs on the card as a product with the
+// constant's reciprocal, so the kernels write it that way (`* rcp3`).
+// Minimum, maximum and clamp return a NaN operand, as PyTorch's do, so
+// that columns whose reconstruction overflows give the plain version's
+// values too.  Build with -fmad=false so that every operation rounds as
+// the plain version's separate tensor operations do.
+//
+// A stage that reads a neighbour's value written by an earlier stage
+// runs after a __syncthreads() that separates the two.  The order of the
+// limiter's steps on one column is the plain version's:
 //
 //   edges -> need (non-oscillatory) -> slope clamp, boundary cells ->
 //   pair sweep -> parabola limit -> posdef, piecewise-constant cells and
@@ -21,9 +36,56 @@
 
 #pragma once
 
-#include "ppm_column.cuh"
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace ale {
+
+// the limiters, in the order of ale_cuda.LIMITERS
+enum { LIM_MONOTONIC, LIM_NON_OSCILLATORY, LIM_POSDEF, N_LIM };
+
+constexpr double kHeps = 1.e-11;   // hor3map.heps
+constexpr double kEpsilp = 1.e-12; // constants.epsilp
+
+template <typename T>
+__device__ __forceinline__ T fab(T x) {
+  return fabs(x);
+}
+
+// torch.minimum / torch.maximum (and clamp): a NaN operand is the result
+template <typename T>
+__device__ __forceinline__ T fmn(T a, T b) {
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+}
+
+template <typename T>
+__device__ __forceinline__ T fmx(T a, T b) {
+  return a != a ? a : (b != b ? b : (b > a ? b : a));
+}
+
+// neither inf nor NaN (x - x is NaN exactly then)
+template <typename T>
+__device__ __forceinline__ bool is_finite(T x) {
+  return x - x == T(0);
+}
+
+// where(|x| < 1e-300, 1e-300, x); the constant is 0 in float, so safe
+// is the identity there
+template <typename T>
+__device__ __forceinline__ T safe(T x) {
+  return fab(x) < T(1e-300) ? T(1e-300) : x;
+}
+
+template <>
+__device__ __forceinline__ float safe(float x) {
+  return x;
+}
+
+__device__ __forceinline__ int clampk(int k, int kk) {
+  return k < 0 ? 0 : (k > kk - 1 ? kk - 1 : k);
+}
 
 // One column of a [k][column] array of TC columns: x[k] is a[k * TC].
 template <typename T, int TC>
@@ -51,7 +113,10 @@ struct ThickP {
   }
 };
 
-// edge_weights of ppm_column.cuh, reading dx through an accessor.
+// Weights of the edge between cells q-1 and q (edge4_weights), q in
+// [0, kk], reading dx through an accessor: the 4-cell estimate in the
+// interior, the one-sided 3-cell estimates at q = 1 and q = kk-1 (kk-1
+// first), the end cells' means at q = 0 and q = kk.
 template <typename T, typename D>
 __device__ __forceinline__ void edge_weights_at(const D &dx, int kk, int q,
                                                 T &w1, T &w2, T &w3,
@@ -137,7 +202,7 @@ __device__ __forceinline__ void edge_weights_at(const D &dx, int kk, int q,
   w4 = h4;
 }
 
-// Edge q of the cell means tm (edge_value).
+// Edge q of the cell means tm (_edge4).
 template <typename T, int TC>
 __device__ __forceinline__ T edge_value_at(Lev<T, TC> tm, int kk, int q,
                                            T w1, T w2, T w3, T w4) {
@@ -145,8 +210,8 @@ __device__ __forceinline__ T edge_value_at(Lev<T, TC> tm, int kk, int q,
          w3 * tm[clampk(q, kk)] + w4 * tm[clampk(q + 1, kk)];
 }
 
-// Cell k's curvature changes sign against a neighbour (the need test of
-// limit_and_fit), from the raw edges.
+// Cell k's curvature changes sign against a neighbour (_limit_nosc's
+// test), from the raw edges.
 template <typename T, int TC>
 __device__ __forceinline__ bool need_at(Lev<T, TC> tm, Lev<T, TC> tel,
                                         Lev<T, TC> ter, int kk, int k) {
@@ -282,6 +347,46 @@ __device__ __forceinline__ void fit_at(T dxk, Lev<T, TC> tm, Lev<T, TC> tel,
   tel[k] = l;
   tm[k] = T(6) * tmk - T(4) * l - T(2) * r;
   ter[k] = T(3) * (l - T(2) * tmk + r);
+}
+
+// The machine epsilon of T.
+template <typename T>
+struct Eps {
+  static constexpr T value = DBL_EPSILON;
+};
+template <>
+struct Eps<float> {
+  static constexpr float value = FLT_EPSILON;
+};
+
+// The deepest interface l in [0, kk-1] of a column whose interfaces
+// p[0..kk-1] do not decrease that lies at least the margin
+// m = 8 eps (|pq| + |p0|) + 4 heps above the pressure pq (eps the machine
+// epsilon): a walk on from `from` when p[from] qualifies, else a binary
+// search; 0 when none does.  The layers above it end at or above
+// pq - m, so after the rounding of their thickness and of their lower
+// edge p[l] + (p[l+1] - p[l]), each still ends above pq (K1: none
+// contains pq) and, for the thickness d <= |pq| + |p0| + m,
+// (pq - p[l]) * (1 / max(d, heps)) >= 1 after its three roundings (K2:
+// each is full at pq).
+template <typename T, int TC>
+__device__ __forceinline__ int clear_above(Lev<T, TC> p, int kk, T pq,
+                                           int from) {
+  const T t = pq - (T(8) * Eps<T>::value * (fab(pq) + fab(p[0]))
+                    + T(4 * kHeps));
+  if (!(p[0] <= t)) return 0;
+  int lo = from;
+  if (!(from >= 0 && p[from] <= t)) {
+    lo = 0;
+    int hi = kk - 1;                  // p[lo] <= t
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (p[mid] <= t) lo = mid;
+      else hi = mid - 1;
+    }
+  }
+  while (lo + 1 < kk && p[lo + 1] <= t) ++lo;
+  return lo;
 }
 
 }  // namespace ale

@@ -6,16 +6,17 @@
 shapes and contiguity, allocates the outputs, launches on the current
 stream and counts its launches per instantiation: `regrid_launches` by
 the tracer limiter of the T/S reconstruction, `remap_launches` by the
-(tracer, velocity) limiter pair.  Both kernels take
-the three limiters of ops/hor3map.py.  K1 takes up to KMAX levels; K2
-takes any number of tracers and as many levels as its tile fits in the
-device's shared memory (`remap_kk_max`).  They take CUDA tensors only;
+(tracer, velocity) limiter pair.  Both kernels take the three limiters
+of ops/hor3map.py, and as many levels as their tile of columns fits in
+the device's shared memory (`regrid_kk_max`, `remap_kk_max`); K2 takes
+any number of tracers.  They take CUDA tensors only;
 `ale.ale_regrid_remap` sends CPU tensors to the plain versions
 `ale.regrid_plain` and `ale.remap_plain`."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,8 +24,6 @@ from .ale import LIMITERS, check_ale
 
 regrid_launches = dict.fromkeys(LIMITERS, 0)
 remap_launches = {(t, v): 0 for t in LIMITERS for v in LIMITERS}
-
-KMAX = 64      # ALE_KMAX of csrc/ppm_column.cuh (K1)
 
 _DTYPES = {torch.float32: 'f32', torch.float64: 'f64'}
 
@@ -52,11 +51,12 @@ def _check(ale, named, ref):
             raise ValueError(f'{name} is not contiguous')
 
 
-def _shapes(kk, J, I, k1, k0, kmax=KMAX):
-    """Raise unless 3 <= kk <= kmax and the (kk+1)- and kk-level fields
-    have their shapes."""
+def _shapes(kk, J, I, k1, k0, kmax):
+    """Raise unless 3 <= kk <= kmax (the kernel's kk_max) and the (kk+1)-
+    and kk-level fields have their shapes."""
     if not 3 <= kk <= kmax:
-        raise ValueError(f'kk={kk} is outside [3, {kmax}]')
+        raise ValueError(f'kk={kk} is outside [3, {kmax}]: kk_max={kmax} is '
+                         'the most levels its tile fits in shared memory')
     for shape, fields in (((kk + 1, J, I), k1), ((kk, J, I), k0)):
         for name, t in fields.items():
             if tuple(t.shape) != shape:
@@ -72,21 +72,22 @@ def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
     k1 = {'p_src': p_src}
     k0 = {'temp': temp, 'saln': saln, 'sigmar': sigmar}
     _check(ale, {**k1, **k0}, p_src)
-    _shapes(kk, J, I, k1, k0)
+    _shapes(kk, J, I, k1, k0, regrid_kk_max(p_src.dtype, p_src.device))
     if len(ale.plevel) != kk:
         raise ValueError(f'plevel has {len(ale.plevel)} levels, not {kk}')
 
     p_dst = torch.empty_like(p_src)
     sfac = torch.empty_like(p_src)
-    ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in (
-        p_src, temp, saln, sigmar, p_dst, sfac)])
+    plevel = _plevel(tuple(ale.plevel), p_src.device)
+    ptrs = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in (
+        p_src, temp, saln, sigmar, plevel, p_dst, sfac)])
     iargs = (ctypes.c_int * 5)(kk, J * I, ale.k_range_plevel,
                                int(ale.tracer_pc_upper),
                                LIMITERS.index(ale.tracer_limiting))
     ap = [e.ap11, e.ap12, e.ap13, e.ap14, e.ap15, e.ap16,
           e.ap21, e.ap22, e.ap23, e.ap24, e.ap25, e.ap26]
     dvals = [delt1 / ale.regrid_nudge_ts, ale.dpmin_interior,
-             ale.stab_fac_limit] + ap + list(ale.plevel)
+             ale.stab_fac_limit] + ap
     dargs = (ctypes.c_double * len(dvals))(*dvals)
     stream = torch.cuda.current_stream(p_src.device).cuda_stream
     with torch.cuda.device(p_src.device):
@@ -97,28 +98,44 @@ def regrid_cuda(e, ale, p_src, temp, saln, sigmar, delt1):
     return p_dst, sfac
 
 
-def _remap_lib():
+@functools.lru_cache(maxsize=None)
+def _plevel(plevel, device):
+    """The minimum interface depths on `device`, in double, as K1 reads
+    them."""
+    return torch.tensor(plevel, dtype=torch.float64, device=device)
+
+
+def shared_bytes(name, dtype, kk):
+    """Dynamic shared memory of one block of kernel `name` ('ale_regrid',
+    'ale_remap') at kk levels."""
     from ..cuda_build import library
-    return library('ale_remap')
-
-
-def remap_shared_bytes(dtype, kk):
-    """Dynamic shared memory of one K2 block at kk levels."""
-    fn = _remap_lib().ale_remap_shared_bytes
+    fn = getattr(library(name), f'{name}_shared_bytes')
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
     return fn(kk, int(dtype == torch.float64))
 
 
-def remap_kk_max(dtype, device):
-    """The largest kk K2 takes in `dtype` on `device`: what its tile fits
-    in the device's opt-in shared memory per block."""
-    fn = _remap_lib().ale_remap_kk_max
+@functools.lru_cache(maxsize=None)
+def _kk_max(name, dtype, device):
+    from ..cuda_build import library
+    fn = getattr(library(name), f'{name}_kk_max')
     fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
     fn.restype = ctypes.c_int
     limit = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     return fn(int(dtype == torch.float64), limit)
+
+
+def regrid_kk_max(dtype, device):
+    """The largest kk K1 takes in `dtype` on `device`: what its tile fits
+    in the device's opt-in shared memory per block."""
+    return _kk_max('ale_regrid', dtype, torch.device(device))
+
+
+def remap_kk_max(dtype, device):
+    """The largest kk K2 takes in `dtype` on `device`: what its tile fits
+    in the device's opt-in shared memory per block."""
+    return _kk_max('ale_remap', dtype, torch.device(device))
 
 
 def remap_cuda(ale, p_src, tms, pu_q, u, pv_q, v, p_dst, pu_new, pv_new):

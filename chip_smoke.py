@@ -11,8 +11,9 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    instantiation of its kernel's template), with ptxas registers, stack
    frames, spills and static shared memory of every instantiation, and
    the dynamic shared memory of a block of each momentum instantiation
-   and of K2 at the main path's kk; it fails if an instantiation of K2
-   has a stack frame or spills (its columns live in shared memory);
+   and of ALE K1 and K2 at the main path's kk; it fails if an
+   instantiation of K1 or K2 has a stack frame or spills (their columns
+   live in shared memory);
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
    two CPPM tracers; the ALE remap with ntr 0 and 5, and 37 for the main
@@ -25,7 +26,10 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    F32_REL * max |ref| per output); median time of the kernel and of the
    plain version from CUDA events, the bound from the bytes each call
    must move and the operations its loops do, and the momentum kernel's
-   own device time from torch.profiler;
+   own device time from torch.profiler; then K1 and K2 in each limiter at
+   KK_DEEP levels on a small ragged grid, against their plain versions in
+   f64 and f32: neither has a cap on the levels below what its tile fits
+   in shared memory;
 4. slice: the full fuk95 step (ALE regrid/remap, lateral and vertical
    mixing) with bench.py's physics at 384x360x53 in f32 through
    build_fuk95 and run, for 10 and for 11 steps after a warm-up: finite
@@ -79,6 +83,7 @@ SALN_DEV = 1e-4
 SALN_DEV_ALE = 5e-3
 NTR_CHECK = (0, 5, 37)  # tracer counts of the ALE remap check
 NTR_MANY = 37           # of those, checked in the main path's pair only
+KK_DEEP, JJ_DEEP, II_DEEP = 80, 24, 41   # the ALE kernels' deep check
 # The channel as blom_tpu builds it (ROADMAP section 3, each shown by
 # blom_tpu itself on the CPU): with its 30 layers the initial sigma
 # ladder reaches sigma 30.5, beyond the EOS at S = 35, so the initial
@@ -460,23 +465,30 @@ def momentum_smem():
             for n, m in enumerate(momtum.MOMMTHS)}
 
 
-def remap_smem():
+ALE_KERNELS = {'ale_regrid': 6, 'ale_remap': 18}   # instantiations
+
+
+def ale_smem(name):
     """{instantiation type: bytes} of dynamic shared memory per block of
-    K2 at the main path's kk."""
+    the ALE kernel `name` (K1 'ale_regrid', K2 'ale_remap') at the main
+    path's kk."""
     import torch
     from blom_tpu_torch.dynamics import ale_cuda
-    return {f'ale_remap_kernel<{t}>': ale_cuda.remap_shared_bytes(dt, KK)
+    return {f'{name}_kernel<{t}>': ale_cuda.shared_bytes(name, dt, KK)
             for t, dt in (('f', torch.float32), ('d', torch.float64))}
 
 
-def remap_frames_ok(ptxas):
-    """All 18 instantiations of K2 (9 limiter pairs, f32 and f64) with
-    no stack frame and no spills."""
-    k2 = {k: v for k, v in ptxas.get('ale_remap', {}).items()
-          if k.startswith('ale_remap_kernel<')}
-    return len(k2) == 18 and all(
-        v.get('stack_frame', 0) == 0 and v.get('spill_stores', 0) == 0
-        and v.get('spill_loads', 0) == 0 for v in k2.values())
+def ale_frames_ok(ptxas):
+    """{kernel: all its instantiations (K1: 3 limiters, K2: 9 limiter
+    pairs; f32 and f64) built, with no stack frame and no spills}."""
+    out = {}
+    for name, count in ALE_KERNELS.items():
+        inst = {k: v for k, v in ptxas.get(name, {}).items()
+                if k.startswith(f'{name}_kernel<')}
+        out[name] = len(inst) == count and all(
+            v.get('stack_frame', 0) == 0 and v.get('spill_stores', 0) == 0
+            and v.get('spill_loads', 0) == 0 for v in inst.values())
+    return out
 
 
 def check_momtum(dev, results):
@@ -519,17 +531,17 @@ def check_momtum(dev, results):
     return ok_all
 
 
-def ale_inputs(dtype, dev, ntr=0):
-    """Columns as in tests/test_ale_pallas.py at the main path's shape:
-    interfaces, T, S, target densities, tracers, velocities on their own
-    interfaces and destination grids from the plain regrid."""
+def ale_inputs(dtype, dev, ntr=0, shape=(KK, JJ, II)):
+    """Columns as in tests/test_ale_pallas.py at `shape`, the main path's
+    by default: interfaces, T, S, target densities, tracers, velocities on
+    their own interfaces."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED)
-    H3 = (KK, JJ, II)
+    H3 = shape
 
     def cum(dp):
-        return np.concatenate([np.zeros((1, JJ, II)), np.cumsum(dp, 0)])
+        return np.concatenate([np.zeros((1,) + H3[1:]), np.cumsum(dp, 0)])
 
     def t(a):
         return torch.tensor(a, dtype=dtype, device=dev)
@@ -545,9 +557,11 @@ def ale_inputs(dtype, dev, ntr=0):
                 trc=trc, u=t(u), v=t(v), pu=t(pu), pv=t(pv))
 
 
-# arithmetic operations per column, counted from the loops of
-# csrc/ale_regrid.cu and csrc/ale_remap.cu (with csrc/ppm_column.cuh
-# and csrc/ppm_tile.cuh):
+# arithmetic operations per column, counted from the plain version's
+# expressions (blom_tpu_torch/ops/hor3map.py ppm_reconstruct,
+# dynamics/ale.py regrid_nudge, hor3map.remap_groups), which
+# csrc/ale_regrid.cu and csrc/ale_remap.cu (with csrc/ppm_tile.cuh)
+# evaluate in the same order:
 # ~90 per edge for the weights, 7 per edge and field for the edge value,
 # ~20 per cell and field for the limiter tests and the coefficients, ~40
 # per cell for the two densities, ~10 per interface for the regime
@@ -637,6 +651,48 @@ def check_ale(dev, results):
                     b, by = bound(ale_bytes(dtype, 'remap', ntr),
                                   ale_remap_ops(ntr) * JJ * II)
                     rec['bound_ms'], rec['bound_by'] = b, by
+                emit('kernel_check', **rec)
+                results.append(rec)
+                ok_all &= ok
+    return ok_all & check_ale_deep(dev, results)
+
+
+def check_ale_deep(dev, results):
+    """K1 and K2 in each limiter (the same for tracers and velocities) at
+    KK_DEEP levels on a JJ_DEEP x II_DEEP grid, whose last tile of columns
+    ends inside it, against their plain versions in f64 and f32, with
+    two tracers."""
+    import torch
+    from blom_tpu_torch.core import eos
+    from blom_tpu_torch.dynamics import ale, ale_cuda
+    e = eos.init_eos(pref=0., expcnf='fuk95')
+    ok_all = True
+    for dtype in (torch.float64, torch.float32):
+        x = ale_inputs(dtype, dev, 2, (KK_DEEP, JJ_DEEP, II_DEEP))
+        for lim in ale.LIMITERS:
+            par = ale.make_ale_params(KK_DEEP)._replace(
+                tracer_limiting=lim, velocity_limiting=lim)
+            rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
+                     360.)
+            ref = ale.regrid_plain(*rargs)
+            out = ale_cuda.regrid_cuda(*rargs)
+            p_dst = ref[0]
+            margs = (par, x['p'], [x['temp'], x['saln']] + x['trc'],
+                     x['pu'], x['u'], x['pv'], x['v'], p_dst, p_dst * .98,
+                     p_dst * .97)
+            mref = ale.remap_plain(*margs)
+            mout = ale_cuda.remap_cuda(*margs)
+            torch.cuda.synchronize()
+            for name, variant, o, r in (
+                    ('ale_regrid', lim, out, ref),
+                    ('ale_remap', f'{lim}/{lim}',
+                     list(mout[0]) + [mout[1], mout[2]],
+                     list(mref[0]) + [mref[1], mref[2]])):
+                ok, eabs, erel = compare(o, r, dtype)
+                rec = dict(kernel=name, variant=variant,
+                           dtype=str(dtype)[6:], kk=KK_DEEP,
+                           shape=[JJ_DEEP, II_DEEP], ok=ok,
+                           max_abs_err=eabs, max_rel_err=erel)
                 emit('kernel_check', **rec)
                 results.append(rec)
                 ok_all &= ok
@@ -1023,8 +1079,9 @@ def kernel_summary(results, paths):
             'ms': main['ms'], 'plain_ms': main['plain_ms'],
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
             'library_ms': None, 'variants': variants}
+        if name in ALE_KERNELS:
+            entry['dynamic_smem'] = ale_smem(name)
         if name == 'ale_remap':
-            entry['dynamic_smem'] = remap_smem()
             entry['instantiations'] = {
                 k: {p: c[name][k] for p, c in paths.items()}
                 for k in next(iter(paths.values()))[name]
@@ -1058,15 +1115,15 @@ def main():
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     ptxas = {k: ptxas_summary(v['ptxas']) for k, v in info.items()}
-    frames_ok = remap_frames_ok(ptxas)
+    frames = ale_frames_ok(ptxas)
     emit('build', seconds=time.perf_counter() - t0,
          nvcc_seconds={k: v['seconds'] for k, v in info.items()},
-         ptxas=ptxas, ale_remap_no_stack_no_spills=frames_ok,
+         ptxas=ptxas, ale_no_stack_no_spills=frames,
          dynamic_smem={'momtum_uv': momentum_smem(),
-                       'ale_remap': remap_smem()})
+                       **{k: ale_smem(k) for k in ALE_KERNELS}})
 
     results = []
-    ok = frames_ok
+    ok = all(frames.values())
     ok &= check_cppm(dev, results)
     ok &= check_momtum(dev, results)
     ok &= check_ale(dev, results)
