@@ -11,27 +11,33 @@
 // One launch sweeps every line of one axis: the i-sweep (ax=-1) walks
 // rows (k, j) with stride 1, the j-sweep (ax=-2) walks columns (k, i)
 // with stride I.  A block owns `nw` adjacent lines of one k-level (nw=1
-// for the i-sweep; in the j-sweep nw neighbouring i columns, so that the
-// loads of a warp stay contiguous in i) and loops over every tracer.
+// for the i-sweep; in the j-sweep nw = 8 neighbouring i columns in f32,
+// so that each warp-wide access covers whole 32-byte sectors) and loops
+// over every tracer; the k-level is the grid's fastest index.
 //
-// What bounds it on an H100: device-memory traffic.  Per cell the sweep
-// reads hm, ca, du, dl (and div_corr on the second pass) plus nt tracers,
-// and writes hn, hf plus 2*nt tracer fields: 13-14 (k, j, i) fields at
-// nt=2 against roughly a thousand flops per cell, close to the card's
-// balance point for f32.  The design keeps every intermediate of the
-// stencil chain (thickness edges, limiter tests, compatible-edge
-// coefficients, parabola coefficients, edge fluxes) in shared memory,
-// one array of line length per stage, so each input is read from device
-// memory once and each output written once.  The +-2 reach of the
-// stencils needs no halo because a block holds the whole line.
+// What bounds it on an H100: the bytes are ~13 (k, j, i) fields at nt=2
+// (0.11 ms at 384x360x53 f32), but its time is the latency of its
+// dependent stages, each a loop over the block's cells between two
+// barriers.  So the design keeps every intermediate of the stencil chain
+// in shared memory, one array of line length each, reads each input from
+// device memory once (the thickness stages leave each cell's flux
+// weights, tracer-edge coefficients, 1 / hn and the divisor of its
+// thickness-parabola factors for the tracer loop), and lets the cell
+// that owns an edge's upstream parabola write that edge's flux, so a
+// tracer takes 4 barriers (3 monotonic).  The +-2 reach of the stencils
+// needs no halo because a block holds the whole line.  19 arrays of a
+// 360-cell line of 8 columns take 219 KB in f32: one block of 1024
+// threads per SM, at most 64 registers each, which the full variants
+// meet without spills.
 //
 // The tracer-matrix coefficients tmc0/tmcl/tmcr are read as the
 // precomputed (12, J, I) slabs of init_cppm_coeffs rather than rebuilt
-// from dx as the TPU kernel did: the TPU rebuilt them to save VMEM; here
-// the 36 planes (20 MB in f32 at 384x360) stay in the 50 MB L2 across the
-// k-levels, and only the rows of the cell's stencil class are read.  The
-// stencil class is a switch, so the LU solve of that class alone runs
-// (the plain version evaluates all classes and selects one).
+// from dx as the TPU kernel did, since a rebuild would not round as the
+// plain version's f64 set-up does.  All 36 of a cell are loaded as one
+// batch ahead of the LU arithmetic; the blocks of one line at all
+// k-levels run together, so the planes (20 MB in f32 at 384x360) come
+// from L2.  The stencil class is a switch, so the LU solve of that class
+// alone runs (the plain version evaluates all classes and selects one).
 //
 // The variant is a template parameter (FULL: compatible tracer edges
 // from the per-cell LU solves, else edges from the thickness
@@ -54,13 +60,48 @@
 
 namespace {
 
+// The block shape, per dtype.  The i-sweep block takes one row with
+// THREADS_I threads (two cells each at I = 384); the j-sweep block takes
+// NW_F32 (NW_F64) neighbouring i columns with THREADS_J_F32 (_F64)
+// threads, so that a warp's loads cover whole 32-byte sectors in i, and
+// fewer columns where their line arrays do not fit in the shared memory.
+// MINB is the blocks per SM of the larger of the two thread counts that
+// __launch_bounds__ asks for: it sets the registers a thread may take,
+// 65536 / (MINB * threads), 64 in f32.
+constexpr int THREADS_I = 192;
+constexpr int THREADS_J_F32 = 1024;
+constexpr int THREADS_J_F64 = 256;
+constexpr int NW_F32 = 8;
+constexpr int NW_F64 = 4;
+constexpr int MINB = 1;
+
+template <typename T>
+struct Shape {
+  static constexpr bool f32 = sizeof(T) == 4;
+  static constexpr int threads_j = f32 ? THREADS_J_F32 : THREADS_J_F64;
+  static constexpr int threads_max =
+      THREADS_I > threads_j ? THREADS_I : threads_j;
+  static constexpr int nw = f32 ? NW_F32 : NW_F64;
+};
+
 enum { S0000, S1111, S1110, S0111, S1100, S0110, S0011, S0100, S0010 };
 
-// shared-memory arrays, each of nw * N values
+// shared-memory arrays, each of nw * N values.  The thickness stages
+// use HM, TE (the raw edges), TD2 (the second derivatives), HEL and HER;
+// stage 5 leaves each cell's quantities that the tracer loop reads: the
+// tracer-edge coefficients TEV0..3, the flux weights P0..2 and the flux
+// area CA of the cell's left edge, HO, AI and HNI (1 / hn) for the
+// update, and in FULL the thickness parabola as HM, HEL, HER with QH =
+// 1 / (12 hm - hel - her).  HF, the thickness flux, shares TD2's array:
+// its last read comes before the tracer loop's first write of TD2.
 enum {
-  A_HM, A_HEL, A_HER, A_TMP1, A_TMP2, A_TEV0, A_TEV1, A_TEV2, A_TEV3,
-  A_HF, A_TM, A_TPC0, A_TPC1, A_TPC2, A_HTF, N_ARR
+  A_HM, A_HEL, A_HER, A_TE, A_TD2, A_TM, A_HTF, A_TEV0, A_TEV1, A_TEV2,
+  A_TEV3, A_P0, A_P1, A_P2, A_CA, A_HO, A_AI, A_HNI, A_QH, N_ARR
 };
+constexpr int A_HF = A_TD2;
+// 1 / hm of each cell for the LU solves, in HTF's array, which the
+// tracer loop first writes after them
+constexpr int A_HMI = A_HTF;
 
 template <typename T>
 struct Args {
@@ -134,25 +175,23 @@ struct Line {
 
 // Flux-integration weights of the upstream parabola
 // (flux_integration, mod_cppm.F90:1373-1468): p0, p1, p2 such that the
-// edge flux of a field with parabola coefficients (c0, c1, c2) of the
-// upstream cell is (p0*c0 + p1*c1 + p2*c2) * ca; upstream is cell p for
-// ca < 0 and cell p-1 otherwise.
+// flux at the left edge of cell p of a field with parabola coefficients
+// (c0, c1, c2) of the upstream cell is (p0*c0 + p1*c1 + p2*c2) * ca;
+// upstream is cell p for ca < 0 and cell p-1 otherwise.
 template <typename T>
 __device__ __forceinline__ void flux_weights(const Args<T> &a,
                                              const Line<T> &L, long k3,
                                              int p, T ca, T &p0, T &p1,
-                                             T &p2, bool &west) {
+                                             T &p2) {
   const T c1_2 = T(.5), c1_3 = T(1. / 3.), c1_4 = T(.25), c1_5 = T(1. / 5.);
   const long ix = L.i2(p);
   const T db = a.db[(a.db3 ? k3 : 0) + ix];
-  const long koff_ai = a.ai3 ? k3 : 0;
-  west = !(ca < T(0));
-  if (!west) {
+  if (ca < T(0)) {
     const T hpc0 = L.s(A_HEL, p);
     const T hm = L.s(A_HM, p), her = L.s(A_HER, p);
     const T hpc1 = T(6) * hm - T(4) * hpc0 - T(2) * her;
     const T hpc2 = T(3) * (hpc0 - T(2) * hm + her);
-    const T c = ca * a.ai[koff_ai + ix];
+    const T c = ca * L.s(A_AI, p);
     const T hb = fmx(db - a.du[k3 + ix], T(0));
     const bool deep = a.dl[k3 + ix] > db;
     const T hf_par = hpc0 - (c1_2 * hpc1 - c1_3 * hpc2 * c) * c;
@@ -168,10 +207,9 @@ __device__ __forceinline__ void flux_weights(const Args<T> &a,
     const bool ok = L.nb(p, -1, q);
     const T h1w = ok ? T(6) * hmw - T(4) * h0w - T(2) * herw : T(0);
     const T h2w = ok ? T(3) * (h0w - T(2) * hmw + herw) : T(0);
-    const T aiw = L.go(a.ai, koff_ai, p, -1);
     const T duw = L.go(a.du, k3, p, -1);
     const T dlw = L.go(a.dl, k3, p, -1);
-    const T cw = ca * aiw;
+    const T cw = ca * L.so(A_AI, p, -1);
     const T q1 = T(1) - c1_2 * cw;
     const T q2 = T(1) - (T(1) - c1_3 * cw) * cw;
     const T hb = fmx(db - duw, T(0));
@@ -185,37 +223,64 @@ __device__ __forceinline__ void flux_weights(const Args<T> &a,
   }
 }
 
-// rows (a_r2, a_r3, a_r4) of the compatible-edge matrix for the cell at
-// p+off, coefficient block j0 of the cell p (mod_cppm.F90:505-560)
+// the thickness-parabola factors of a FULL cell (mod_cppm.F90:731-1371):
+// with them the tracer parabola's slope is hf1m tm + hf1l tel + hf1r ter
+// and its curvature hf2m tm + hf2l tel + hf2r ter, hf2m = -hf1m
 template <typename T>
-__device__ __forceinline__ void mrow(const Args<T> &a, const Line<T> &L,
-                                     int p, int off, int j0, T &r2, T &r3,
-                                     T &r4) {
-  const T h = L.so(A_HM, p, off);
-  const T hl = L.so(A_HEL, p, off);
-  const T hr = L.so(A_HER, p, off);
-  const T hi = T(1) / h;
+struct HFac {
+  T f1m, f1l, f1r, f2m, f2l, f2r;
+  __device__ __forceinline__ void load(const Line<T> &L, int p) {
+    const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
+    const T qh = L.s(A_QH, p);
+    f1m = T(60) * hm * qh;
+    f1l = -(T(42) * hm + T(4) * hel - T(6) * her) * qh;
+    f1r = -(T(18) * hm - T(4) * hel + T(6) * her) * qh;
+    f2m = -f1m;
+    f2l = T(5) * (T(6) * hm + hel - her) * qh;
+    f2r = T(5) * (T(6) * hm - hel + her) * qh;
+  }
+};
+
+// The compatible tracer-edge coefficients of cell p in stencil class st
+// (mod_cppm.F90:505-560): the LU solve of the class's rows of the
+// compatible-edge matrix.  Row 3 o + m (m = 0, 1, 2) is built from the
+// coefficient rows 3 o + m of cell p and the thickness of the cell at
+// p + o - 2 (its edges and 1 / hm; past a closed end 0, where no class
+// reads the row).  All 36 coefficients are loaded first, as one batch that
+// depends on nothing but the cell (the unused rows of a class cost no
+// more sectors, since the warp's other cells read them), and the rows of
+// all four offsets are formed from them; the class then selects its LU
+// solve, as the plain version selects among all classes.
+template <typename T>
+__device__ __forceinline__ void tracer_edge_coeffs(const Args<T> &a,
+                                                   const Line<T> &L, int p,
+                                                   int st, T tev[4]) {
   const long JI = (long)a.J * a.I;
   const long ix = L.i2(p);
-  const T *c0 = a.tmc0 + ix, *cl = a.tmcl + ix, *cr = a.tmcr + ix;
-  r2 = c0[j0 * JI] + (cl[j0 * JI] * hl + cr[j0 * JI] * hr) * hi;
-  r3 = c0[(j0 + 1) * JI] + (cl[(j0 + 1) * JI] * hl
-                            + cr[(j0 + 1) * JI] * hr) * hi;
-  r4 = c0[(j0 + 2) * JI] + (cl[(j0 + 2) * JI] * hl
-                            + cr[(j0 + 2) * JI] * hr) * hi;
-}
-
-template <typename T>
-__device__ void tracer_edge_coeffs(const Args<T> &a, const Line<T> &L,
-                                   int p, int st, T tev[4]) {
-  T a12, a13, a14, b22, b23, b24, b32, b33, b34, b42, b43, b44;
+  T c0[12], cl[12], cr[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    c0[j] = a.tmc0[j * JI + ix];
+    cl[j] = a.tmcl[j * JI + ix];
+    cr[j] = a.tmcr[j * JI + ix];
+  }
+  T r[12];
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    const T hl = L.so(A_HEL, p, o - 2);
+    const T hr = L.so(A_HER, p, o - 2);
+    const T hi = L.so(A_HMI, p, o - 2);
+#pragma unroll
+    for (int m = 3 * o; m < 3 * o + 3; ++m)
+      r[m] = c0[m] + (cl[m] * hl + cr[m] * hr) * hi;
+  }
+  const T a12 = r[0], a13 = r[1], a14 = r[2];
+  const T b22 = r[3], b23 = r[4], b24 = r[5];
+  const T b32 = r[6], b33 = r[7], b34 = r[8];
+  const T b42 = r[9], b43 = r[10], b44 = r[11];
   tev[0] = tev[1] = tev[2] = tev[3] = T(0);
   switch (st) {
     case S1111: {
-      mrow(a, L, p, -2, 0, a12, a13, a14);
-      mrow(a, L, p, -1, 3, b22, b23, b24);
-      mrow(a, L, p, 0, 6, b32, b33, b34);
-      mrow(a, L, p, 1, 9, b42, b43, b44);
       const T a22 = b22 - a12, a23 = b23 - a13, a24 = b24 - a14;
       const T a32 = b32 - a12, a33 = b33 - a13, a34 = b34 - a14;
       const T a42 = b42 - a12, a43 = b43 - a13, a44 = b44 - a14;
@@ -241,9 +306,6 @@ __device__ void tracer_edge_coeffs(const Args<T> &a, const Line<T> &L,
       break;
     }
     case S1110: {
-      mrow(a, L, p, -2, 0, a12, a13, a14);
-      mrow(a, L, p, -1, 3, b22, b23, b24);
-      mrow(a, L, p, 0, 6, b32, b33, b34);
       const T d23 = (b23 - a13) / safe(b22 - a12);
       const T d33 = (b33 - a13) - d23 * (b32 - a12);
       T t2 = -a12;
@@ -255,9 +317,6 @@ __device__ void tracer_edge_coeffs(const Args<T> &a, const Line<T> &L,
       break;
     }
     case S0111: {
-      mrow(a, L, p, -1, 3, b22, b23, b24);
-      mrow(a, L, p, 0, 6, b32, b33, b34);
-      mrow(a, L, p, 1, 9, b42, b43, b44);
       const T e32 = b32 - b22, e42 = b42 - b22;
       const T e33 = (b33 - b23) / safe(e32);
       const T e43 = (b43 - b23) - e33 * e42;
@@ -270,24 +329,18 @@ __device__ void tracer_edge_coeffs(const Args<T> &a, const Line<T> &L,
       break;
     }
     case S1100: {
-      mrow(a, L, p, -2, 0, a12, a13, a14);
-      mrow(a, L, p, -1, 3, b22, b23, b24);
       const T t2 = -a12 / safe(b22 - a12);
       tev[0] = T(1) - t2;
       tev[1] = t2;
       break;
     }
     case S0110: {
-      mrow(a, L, p, -1, 3, b22, b23, b24);
-      mrow(a, L, p, 0, 6, b32, b33, b34);
       const T t3 = -b22 / safe(b32 - b22);
       tev[1] = T(1) - t3;
       tev[2] = t3;
       break;
     }
     case S0011: {
-      mrow(a, L, p, 0, 6, b32, b33, b34);
-      mrow(a, L, p, 1, 9, b42, b43, b44);
       const T t4 = -b32 / safe(b42 - b32);
       tev[2] = T(1) - t4;
       tev[3] = t4;
@@ -337,16 +390,32 @@ __device__ __forceinline__ void extremum_limit(T m, T el2, T er2, T &el,
   er = -r > q ? T(3) * m - T(2) * el2 : er2;
 }
 
-// at most 64 registers, so four 256-thread blocks fit on an SM: the
-// phases wait on global loads, and two blocks (at the 90 registers ptxas
-// chooses unbounded) leave too few warps to hide that latency
+// the parabola of a tracer (mean tm, limited edges tel, ter) as the
+// coefficients (c0, c1, c2) of the flux integration
+template <typename T, bool FULL>
+__device__ __forceinline__ void tracer_parabola(const HFac<T> &f, T tm,
+                                                T tel, T ter, T &c0, T &c1,
+                                                T &c2) {
+  c0 = tel;
+  if constexpr (FULL) {
+    c1 = f.f1m * tm + f.f1l * tel + f.f1r * ter;
+    c2 = f.f2m * tm + f.f2l * tel + f.f2r * ter;
+  } else {
+    c1 = T(6) * tm - T(4) * tel - T(2) * ter;
+    c2 = T(3) * (tel - T(2) * tm + ter);
+  }
+}
+
 template <typename T, bool FULL, bool MONO>
-__global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
+__global__ void __launch_bounds__(Shape<T>::threads_max, MINB)
+    cppm_sweep_kernel(Args<T> a) {
   extern __shared__ unsigned char smem_raw[];
-  const int k = blockIdx.y;
+  const bool isweep = a.ax == -1;
+  const int k = blockIdx.x;
+  const int lb = blockIdx.y;   // block of lines
   const long JI = (long)a.J * a.I;
   const long k3 = (long)k * JI;
-  const bool isweep = a.ax == -1;
+  const long NK = (long)a.kk * JI;
   const int N = isweep ? a.I : a.J;
   const int nlines = isweep ? a.J : a.I;
   const int ncell = N * a.nw;
@@ -363,7 +432,7 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   for (int c = threadIdx.x; c < ncell; c += blockDim.x) {           \
     const int p = c / a.nw;                                         \
     L.w = c - p * a.nw;                                             \
-    const int line = blockIdx.x * a.nw + L.w;                       \
+    const int line = lb * a.nw + L.w;                               \
     if (line >= nlines) continue;                                   \
     L.base2 = isweep ? (long)line * a.I : (long)line;               \
     const long ix = L.i2(p);                                        \
@@ -371,19 +440,34 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
 
 #define END_CELLS }
 
-  // ---- 1: thickness, with the transverse divergence correction
+  // ---- 1: thickness, with the transverse divergence correction; the
+  // first tracer
   FOR_CELLS
-    T hm = fmx(a.hm[k3 + ix], T(0)) + dpeps;
-    if (a.div) hm = hm / (T(1) - a.div[k3 + ix] * a.ai[(a.ai3 ? k3 : 0) + ix]);
+    const T ho = fmx(a.hm[k3 + ix], T(0)) + dpeps;
+    const T ai = a.ai[(a.ai3 ? k3 : 0) + ix];
+    L.s(A_HO, p) = ho;
+    L.s(A_AI, p) = ai;
+    const T hm = a.div ? ho / (T(1) - a.div[k3 + ix] * ai) : ho;
     L.s(A_HM, p) = hm;
+    if constexpr (FULL) L.s(A_HMI, p) = T(1) / hm;
+    if (a.nt > 0) L.s(A_TM, p) = a.tm[k3 + ix];
   END_CELLS
   __syncthreads();
 
-  // ---- 2: 4th-order edge estimate (h_edges_*, mod_cppm.F90:361-380)
+  // ---- 2: 4th-order edge estimate (h_edges_*, mod_cppm.F90:361-380);
+  // in PARTIAL its coefficients are the tracers' too
   FOR_CELLS
     const T *hv = a.hevc + ix;
-    L.s(A_TMP1, p) = hv[0] * L.so(A_HM, p, -2) + hv[JI] * L.so(A_HM, p, -1)
-                     + hv[2 * JI] * L.s(A_HM, p) + hv[3 * JI] * L.so(A_HM, p, 1);
+    const T v0 = hv[0], v1 = hv[JI], v2 = hv[2 * JI];
+    const T v3 = hv[3 * JI];
+    L.s(A_TE, p) = v0 * L.so(A_HM, p, -2) + v1 * L.so(A_HM, p, -1)
+                   + v2 * L.s(A_HM, p) + v3 * L.so(A_HM, p, 1);
+    if constexpr (!FULL) {
+      L.s(A_TEV0, p) = v0;
+      L.s(A_TEV1, p) = v1;
+      L.s(A_TEV2, p) = v2;
+      L.s(A_TEV3, p) = v3;
+    }
   END_CELLS
   __syncthreads();
 
@@ -391,8 +475,8 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   if constexpr (!MONO) {
     FOR_CELLS
       const T hm = L.s(A_HM, p);
-      const T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
-      L.s(A_TMP2, p) = a.d2m[ix] * (hel - T(2) * hm + her);
+      const T hel = L.s(A_TE, p), her = L.so(A_TE, p, 1);
+      L.s(A_TD2, p) = a.d2m[ix] * (hel - T(2) * hm + her);
     END_CELLS
     __syncthreads();
   }
@@ -402,17 +486,18 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   // h_edges_mono, :436-488)
   FOR_CELLS
     const T hm = L.s(A_HM, p);
-    T hel = L.s(A_TMP1, p), her = L.so(A_TMP1, p, 1);
+    T hel = L.s(A_TE, p), her = L.so(A_TE, p, 1);
     bool need = true;
     if constexpr (!MONO) {
-      const T d2h = L.s(A_TMP2, p);
-      need = (L.so(A_TMP2, p, -1) * d2h <= T(0))
-             || (d2h * L.so(A_TMP2, p, 1) <= T(0));
+      const T d2h = L.s(A_TD2, p);
+      need = (L.so(A_TD2, p, -1) * d2h <= T(0))
+             || (d2h * L.so(A_TD2, p, 1) <= T(0));
     }
     if (need) {
       T hel2, her2;
-      if (edge_clamp(hm, L.so(A_HM, p, -1), L.so(A_HM, p, 1), a.ssc[ix],
-                     a.scc[ix], hel, her, hel2, her2)) {
+      if (edge_clamp(hm, L.so(A_HM, p, -1), L.so(A_HM, p, 1),
+                     a.ssc[ix], a.scc[ix], hel, her, hel2,
+                     her2)) {
         extremum_limit(hm, hel2, her2, hel, her);
       } else {
         hel = hm;
@@ -438,8 +523,8 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
   __syncthreads();
 
   // ---- 5: compatible tracer-edge coefficients (per-cell LU solve of the
-  // cell's stencil class; full compatibility only) and the thickness
-  // edge flux
+  // cell's stencil class; full compatibility only), the flux weights of
+  // the cell's left edge and the thickness flux there
   FOR_CELLS
     if constexpr (FULL) {
       T tev[4];
@@ -451,46 +536,39 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
     }
     const T ca = a.ca[k3 + ix];
     T p0, p1, p2;
-    bool west;
-    flux_weights(a, L, k3, p, ca, p0, p1, p2, west);
+    flux_weights(a, L, k3, p, ca, p0, p1, p2);
+    L.s(A_P0, p) = p0;
+    L.s(A_P1, p) = p1;
+    L.s(A_P2, p) = p2;
+    L.s(A_CA, p) = ca;
     L.s(A_HF, p) = p0 * ca;
   END_CELLS
   __syncthreads();
 
-  // hn and hf (written once)
+  // ---- 5b: hn and hf (written once), 1 / hn, and in FULL the divisor of
+  // the thickness-parabola factors; each cell's own values, read by the
+  // same thread in the tracer loop, so no barrier follows
   FOR_CELLS
-    const T ho = fmx(a.hm[k3 + ix], T(0)) + dpeps;
-    const T ai = a.ai[(a.ai3 ? k3 : 0) + ix];
-    const T hf = L.s(A_HF, p);
-    a.hn[k3 + ix] = ho - (L.so(A_HF, p, 1) - hf) * ai;
+    const T ho = L.s(A_HO, p), ai = L.s(A_AI, p), hf = L.s(A_HF, p);
+    const T hn = ho - (L.so(A_HF, p, 1) - hf) * ai;
+    a.hn[k3 + ix] = hn;
     a.hf[k3 + ix] = hf;
+    L.s(A_HNI, p) = T(1) / hn;
+    if constexpr (FULL)
+      L.s(A_QH, p) = T(1) / (T(12) * L.s(A_HM, p) - L.s(A_HEL, p)
+                             - L.s(A_HER, p));
   END_CELLS
 
-  const long NK = (long)a.kk * JI;
   for (int t = 0; t < a.nt; ++t) {
     const long t3 = t * NK + k3;
-    // ---- 6a: tracer
-    FOR_CELLS
-      L.s(A_TM, p) = a.tm[t3 + ix];
-    END_CELLS
-    __syncthreads();
-
     // ---- 6b: tracer edge values: compatible (the cell's LU
     // coefficients) or from the thickness coefficients (mod_cppm.F90:
     // 1143-1155)
     FOR_CELLS
-      if constexpr (FULL) {
-        L.s(A_TMP1, p) = L.s(A_TEV0, p) * L.so(A_TM, p, -2)
-                         + L.s(A_TEV1, p) * L.so(A_TM, p, -1)
-                         + L.s(A_TEV2, p) * L.s(A_TM, p)
-                         + L.s(A_TEV3, p) * L.so(A_TM, p, 1);
-      } else {
-        const T *hv = a.hevc + ix;
-        L.s(A_TMP1, p) = hv[0] * L.so(A_TM, p, -2)
-                         + hv[JI] * L.so(A_TM, p, -1)
-                         + hv[2 * JI] * L.s(A_TM, p)
-                         + hv[3 * JI] * L.so(A_TM, p, 1);
-      }
+      L.s(A_TE, p) = L.s(A_TEV0, p) * L.so(A_TM, p, -2)
+                     + L.s(A_TEV1, p) * L.so(A_TM, p, -1)
+                     + L.s(A_TEV2, p) * L.s(A_TM, p)
+                     + L.s(A_TEV3, p) * L.so(A_TM, p, 1);
     END_CELLS
     __syncthreads();
 
@@ -499,58 +577,52 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
     if constexpr (!MONO) {
       FOR_CELLS
         const T tm = L.s(A_TM, p);
-        const T tel = L.s(A_TMP1, p), ter = L.so(A_TMP1, p, 1);
+        const T tel = L.s(A_TE, p), ter = L.so(A_TE, p, 1);
         if constexpr (FULL) {
-          const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p);
-          const T her = L.s(A_HER, p);
-          const T qh = T(1) / (T(12) * hm - hel - her);
-          const T hf1m = T(60) * hm * qh;
-          const T hf2m = -hf1m;
-          const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
-          const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
-          L.s(A_TMP2, p) = a.d2m[ix] * (hf2m * tm + hf2l * tel + hf2r * ter);
+          HFac<T> f;
+          f.load(L, p);
+          L.s(A_TD2, p) = a.d2m[ix] * (f.f2m * tm + f.f2l * tel
+                                       + f.f2r * ter);
         } else {
-          L.s(A_TMP2, p) = a.d2m[ix] * (tel - T(2) * tm + ter);
+          L.s(A_TD2, p) = a.d2m[ix] * (tel - T(2) * tm + ter);
         }
       END_CELLS
       __syncthreads();
     }
 
     // ---- 6d: limiting, positivity and parabola coefficients
-    // (parabola_coeffs_{fc,pc}_{nosc,mono}, mod_cppm.F90:731-1371)
+    // (parabola_coeffs_{fc,pc}_{nosc,mono}, mod_cppm.F90:731-1371); the
+    // cell then writes the flux of each edge whose upstream cell it is:
+    // its left edge where ca < 0, its right edge where ca >= 0 there
     FOR_CELLS
       const T tm = L.s(A_TM, p);
-      T tel = L.s(A_TMP1, p), ter = L.so(A_TMP1, p, 1);
+      T tel = L.s(A_TE, p), ter = L.so(A_TE, p, 1);
       bool need = true;
       if constexpr (!MONO) {
-        const T d2t = L.s(A_TMP2, p);
-        need = (L.so(A_TMP2, p, -1) * d2t <= T(0))
-               || (d2t * L.so(A_TMP2, p, 1) <= T(0));
+        const T d2t = L.s(A_TD2, p);
+        need = (L.so(A_TD2, p, -1) * d2t <= T(0))
+               || (d2t * L.so(A_TD2, p, 1) <= T(0));
       }
+      HFac<T> f;
       if constexpr (FULL) {
-        const T hm = L.s(A_HM, p), hel = L.s(A_HEL, p), her = L.s(A_HER, p);
-        const T qh = T(1) / (T(12) * hm - hel - her);
-        const T hf1m = T(60) * hm * qh;
-        const T hf1l = -(T(42) * hm + T(4) * hel - T(6) * her) * qh;
-        const T hf1r = -(T(18) * hm - T(4) * hel + T(6) * her) * qh;
-        const T hf2m = -hf1m;
-        const T hf2l = T(5) * (T(6) * hm + hel - her) * qh;
-        const T hf2r = T(5) * (T(6) * hm - hel + her) * qh;
+        f.load(L, p);
         if (need) {
           T tel2, ter2;
           if (edge_clamp(tm, L.so(A_TM, p, -1), L.so(A_TM, p, 1),
-                         a.ssc[ix], a.scc[ix], tel, ter, tel2, ter2)) {
-            const T sl2 = hf1m * tm + hf1l * tel2 + hf1r * ter2;
-            const T a2 = hf2m * tm + hf2l * tel2 + hf2r * ter2;
+                         a.ssc[ix], a.scc[ix], tel, ter, tel2,
+                         ter2)) {
+            const T sl2 = f.f1m * tm + f.f1l * tel2 + f.f1r * ter2;
+            const T a2 = f.f2m * tm + f.f2l * tel2 + f.f2r * ter2;
             const T sr2 = sl2 + T(2) * a2;
             const bool fix = sl2 * sr2 < T(0);
             const bool left_fix = (ter2 - tel2) * a2 < T(0);
             const T tel3 = (fix && left_fix)
-                ? -((hf1m + T(2) * hf2m) * tm + (hf1r + T(2) * hf2r) * ter2)
-                      / (hf1l + T(2) * hf2l)
+                ? -((f.f1m + T(2) * f.f2m) * tm
+                    + (f.f1r + T(2) * f.f2r) * ter2)
+                      / (f.f1l + T(2) * f.f2l)
                 : tel2;
             const T ter3 = (fix && !left_fix)
-                ? -(hf1m * tm + hf1l * tel3) / hf1r : ter2;
+                ? -(f.f1m * tm + f.f1l * tel3) / f.f1r : ter2;
             tel = tel3;
             ter = ter3;
           } else {
@@ -561,8 +633,8 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
         if (!MONO && t >= 1) {
           // positivity for salinity and passive tracers
           T tel_p = fmx(tel, T(0)), ter_p = fmx(ter, T(0));
-          const T sl3 = hf1m * tm + hf1l * tel_p + hf1r * ter_p;
-          const T a23 = hf2m * tm + hf2l * tel_p + hf2r * ter_p;
+          const T sl3 = f.f1m * tm + f.f1l * tel_p + f.f1r * ter_p;
+          const T a23 = f.f2m * tm + f.f2l * tel_p + f.f2r * ter_p;
           const T sr3 = sl3 + T(2) * a23;
           if (sl3 < T(0) && sr3 > T(0)
               && (a23 * tel_p - T(.25) * sl3 * sl3 < T(0))) {
@@ -573,14 +645,12 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
           tel = tel_p;
           ter = ter_p;
         }
-        L.s(A_TPC0, p) = tel;
-        L.s(A_TPC1, p) = hf1m * tm + hf1l * tel + hf1r * ter;
-        L.s(A_TPC2, p) = hf2m * tm + hf2l * tel + hf2r * ter;
       } else {
         if (need) {
           T tel2, ter2;
           if (edge_clamp(tm, L.so(A_TM, p, -1), L.so(A_TM, p, 1),
-                         a.ssc[ix], a.scc[ix], tel, ter, tel2, ter2)) {
+                         a.ssc[ix], a.scc[ix], tel, ter, tel2,
+                         ter2)) {
             extremum_limit(tm, tel2, ter2, tel, ter);
           } else {
             tel = tm;
@@ -602,37 +672,39 @@ __global__ void __launch_bounds__(256, 4) cppm_sweep_kernel(Args<T> a) {
           tel = tel_p;
           ter = ter_p;
         }
-        L.s(A_TPC0, p) = tel;
-        L.s(A_TPC1, p) = T(6) * tm - T(4) * tel - T(2) * ter;
-        L.s(A_TPC2, p) = T(3) * (tel - T(2) * tm + ter);
+      }
+      T c0, c1, c2;
+      tracer_parabola<T, FULL>(f, tm, tel, ter, c0, c1, c2);
+      const T ca = L.s(A_CA, p);
+      if (ca < T(0))
+        L.s(A_HTF, p) = (L.s(A_P0, p) * c0 + L.s(A_P1, p) * c1
+                         + L.s(A_P2, p) * c2) * ca;
+      int q;
+      if (L.nb(p, 1, q)) {
+        const T car = L.s(A_CA, q);
+        if (!(car < T(0)))
+          L.s(A_HTF, q) = (L.s(A_P0, q) * c0 + L.s(A_P1, q) * c1
+                           + L.s(A_P2, q) * c2) * car;
+      }
+      if (!L.nb(p, -1, q) && !(ca < T(0))) {
+        // the left edge of a closed line: its upstream cell lies beyond
+        // the end, whose parabola is zero
+        L.s(A_HTF, p) = (L.s(A_P0, p) * T(0) + L.s(A_P1, p) * T(0)
+                         + L.s(A_P2, p) * T(0)) * ca;
       }
     END_CELLS
     __syncthreads();
 
-    // ---- 6e: tracer edge flux from the upstream parabola
+    // ---- 6f: cell update, and the next tracer
     FOR_CELLS
-      const T ca = a.ca[k3 + ix];
-      T p0, p1, p2;
-      bool west;
-      flux_weights(a, L, k3, p, ca, p0, p1, p2, west);
-      const int off = west ? -1 : 0;
-      L.s(A_HTF, p) = (p0 * L.so(A_TPC0, p, off) + p1 * L.so(A_TPC1, p, off)
-                       + p2 * L.so(A_TPC2, p, off)) * ca;
-    END_CELLS
-    __syncthreads();
-
-    // ---- 6f: cell update
-    FOR_CELLS
-      const T ho = fmx(a.hm[k3 + ix], T(0)) + dpeps;
-      const T ai = a.ai[(a.ai3 ? k3 : 0) + ix];
-      const T hf = L.s(A_HF, p);
-      const T hn = ho - (L.so(A_HF, p, 1) - hf) * ai;
       const T htf = L.s(A_HTF, p);
-      const T hni = T(1) / hn;
-      a.tmn[t3 + ix] = (ho * L.s(A_TM, p) - (L.so(A_HTF, p, 1) - htf) * ai) * hni;
+      a.tmn[t3 + ix] = (L.s(A_HO, p) * L.s(A_TM, p)
+                        - (L.so(A_HTF, p, 1) - htf) * L.s(A_AI, p))
+                       * L.s(A_HNI, p);
       a.htf[t3 + ix] = htf;
+      if (t + 1 < a.nt) L.s(A_TM, p) = a.tm[t3 + NK + ix];
     END_CELLS
-    __syncthreads();
+    if (t + 1 < a.nt) __syncthreads();
   }
 #undef FOR_CELLS
 #undef END_CELLS
@@ -646,9 +718,31 @@ int launch_variant(const Args<T> &a, int threads, size_t smem,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nlines = a.ax == -1 ? a.J : a.I;
-  dim3 grid((nlines + a.nw - 1) / a.nw, a.kk);
+  // the k-level is the grid's fastest index: the blocks of one line at
+  // every level run close together and share its coefficient planes in L2
+  const dim3 grid(a.kk, (nlines + a.nw - 1) / a.nw);
   cppm_sweep_kernel<T, FULL, MONO><<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Lines per block (nw) and shared bytes per block of a sweep with lines
+// of N cells on axis ax: fewer lines than NW_F32 (NW_F64) where they do
+// not fit in the device's shared memory (the j-sweep at large J, in f64
+// first); cudaErrorInvalidValue where one line does not fit.
+template <typename T>
+int block_lines(int N, int ax, int &nw, size_t &smem) {
+  nw = ax == -1 ? 1 : Shape<T>::nw;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(
+      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t line_bytes = (size_t)N_ARR * N * sizeof(T);
+  while (nw > 1 && line_bytes * nw > (size_t)smem_max) nw /= 2;
+  if (line_bytes > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  smem = line_bytes * nw;
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -680,24 +774,14 @@ int launch(void *const *ptrs, const int *iargs, void *stream) {
   a.nt = iargs[3];
   a.ax = iargs[4];
   a.periodic = iargs[5];
-  a.nw = iargs[6];
-  a.db3 = iargs[7];
-  a.ai3 = iargs[8];
-  const int threads = iargs[9];
-  const int full = iargs[10], mono = iargs[11];
+  a.db3 = iargs[6];
+  a.ai3 = iargs[7];
+  const int full = iargs[8], mono = iargs[9];
+  const int threads = a.ax == -1 ? THREADS_I : Shape<T>::threads_j;
   const int N = a.ax == -1 ? a.I : a.J;
-  // take fewer lines per block than asked when they do not fit in the
-  // device's shared memory (the j-sweep at large J, in f64 first)
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(
-      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t line_bytes = (size_t)N_ARR * N * sizeof(T);
-  while (a.nw > 1 && line_bytes * a.nw > (size_t)smem_max) a.nw /= 2;
-  if (line_bytes > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  const size_t smem = line_bytes * a.nw;
+  size_t smem;
+  const int err = block_lines<T>(N, a.ax, a.nw, smem);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (full)
     return mono ? launch_variant<T, true, true>(a, threads, smem, s)
@@ -712,18 +796,27 @@ extern "C" {
 
 // ptrs: hm, tm, ca, db, du, dl, ai, div (or null), stencil, hevc, ssc,
 // scc, d2m, tmc0, tmcl, tmcr, hn, tmn, hf, htf.
-// iargs: kk, J, I, nt, ax, periodic, nw (most lines per block), db3, ai3,
-// threads, full (compatibility 'full', else 'partial'), mono (limiting
-// 'monotonic', else 'non_oscillatory').  Returns the cudaError_t of the
-// launch; cudaErrorInvalidValue
-// when one line does not fit in shared memory (N above 3874 in f32, 1937
-// in f64, at the H100's 227 KB per block).
+// iargs: kk, J, I, nt, ax, periodic, db3, ai3, full (compatibility
+// 'full', else 'partial'), mono (limiting 'monotonic', else
+// 'non_oscillatory').  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue when one line does not fit in shared memory (N
+// above 3874 in f32, 1937 in f64, at the H100's 227 KB per block).
 int cppm_sweep_f32(void *const *ptrs, const int *iargs, void *stream) {
   return launch<float>(ptrs, iargs, stream);
 }
 
 int cppm_sweep_f64(void *const *ptrs, const int *iargs, void *stream) {
   return launch<double>(ptrs, iargs, stream);
+}
+
+// dynamic shared memory of a block sweeping lines of n cells on axis ax
+// (-1: i, -2: j), in f64 or f32; -1 where one line does not fit
+long long cppm_sweep_shared_bytes(int n, int ax, int f64) {
+  int nw;
+  size_t smem;
+  const int err = f64 ? block_lines<double>(n, ax, nw, smem)
+                      : block_lines<float>(n, ax, nw, smem);
+  return err == cudaSuccess ? (long long)smem : -1;
 }
 
 }

@@ -9,7 +9,8 @@
 // does both with regular expressions), then build with
 // `g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC -pthread`.
 //
-// A launch runs its blocks one after another.  By default a block runs
+// A launch runs its blocks one after another (a grid of up to three
+// dimensions).  By default a block runs
 // with one thread (blockDim.x = 1), which gives a kernel's result
 // whenever each of its stages is a loop over the block's points with
 // stride blockDim.x, the stages separated by __syncthreads() (a no-op
@@ -49,7 +50,9 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 
 struct dim3 {
-  unsigned x = 1, y = 1, z = 1;
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
 
 static thread_local dim3 threadIdx;
@@ -128,15 +131,17 @@ inline cudaError_t cudaFuncSetAttribute(F, int attr, int value) {
 }
 
 template <typename F, typename... A>
-void shim_launch(F kern, int blocks, int threads, size_t smem,
+void shim_launch(F kern, dim3 grid, int threads, size_t smem,
                  const A &...args) {
   const int nth = shim_block_threads < 0 ? threads : 1;
-  gridDim.x = blocks;
+  gridDim = grid;
   blockDim.x = nth;
   shim_barrier.n = nth;
   shim_smem.assign(smem > 0 ? smem : 1, 0xFF);
-  for (int b = 0; b < blocks; ++b) {
-    blockIdx.x = b;
+  for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
+    blockIdx.x = b % grid.x;
+    blockIdx.y = b / grid.x % grid.y;
+    blockIdx.z = b / grid.x / grid.y;
     memset(shim_smem.data(), 0xFF, shim_smem.size());
     if (shim_block_threads < 0) {
       std::vector<std::thread> pool;

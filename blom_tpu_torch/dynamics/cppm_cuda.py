@@ -28,13 +28,14 @@ def _fn(dtype):
     return fn
 
 
-# (threads, lines) of a block.  The i-sweep block takes one row with 192
-# threads (two cells each at I = 384); the j-sweep block takes up to 4
-# neighbouring i columns with 256 threads, so a warp's loads are
-# contiguous in i.  The staged line arrays of 4 columns take 86 KB of
-# shared memory in f32 and 173 KB in f64 at J = 360; the kernel takes
-# fewer columns where they do not fit.
-_BLOCK = {-1: (192, 1), -2: (256, 4)}
+def shared_bytes(n: int, ax: int, dtype) -> int:
+    """Dynamic shared memory of a block of the sweep over lines of n
+    cells on axis ax (the kernel picks the block's shape)."""
+    from ..cuda_build import library
+    fn = library('cppm_sweep').cppm_sweep_shared_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn(n, ax, int(dtype == torch.float64))
 
 
 def cppm_sweep_cuda(hm, tm, ca, db, du, dl, ai, co: CppmCoeffs,
@@ -87,11 +88,10 @@ def cppm_sweep_cuda(hm, tm, ca, db, du, dl, ai, co: CppmCoeffs,
             hn, tmn, hf, htf]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(
         *[0 if t is None else t.data_ptr() for t in ptrs])
-    threads, nw = _BLOCK[ax]
-    iargs = (ctypes.c_int * 12)(
-        kk, J, I, nt, ax, int(periodic), nw,
-        int(db.dim() == 3), int(ai.dim() == 3), threads,
-        int(compatibility == 'full'), int(limiting == 'monotonic'))
+    iargs = (ctypes.c_int * 10)(
+        kk, J, I, nt, ax, int(periodic), int(db.dim() == 3),
+        int(ai.dim() == 3), int(compatibility == 'full'),
+        int(limiting == 'monotonic'))
     stream = torch.cuda.current_stream(hm.device).cuda_stream
     with torch.cuda.device(hm.device):
         err = _fn(dtype)(ptr_arr, iargs, stream)

@@ -10,10 +10,10 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    blom_tpu_torch/csrc (one nvcc each, all at once; every variant is an
    instantiation of its kernel's template), with ptxas registers, stack
    frames, spills and static shared memory of every instantiation, and
-   the dynamic shared memory of a block of each momentum instantiation
-   and of ALE K1 and K2 at the main path's kk; it fails if an
-   instantiation of K1 or K2 has a stack frame or spills (their columns
-   live in shared memory);
+   the dynamic shared memory of a block of the CPPM sweep on each axis,
+   of each momentum instantiation and of ALE K1 and K2 at the main
+   path's kk; it fails if an instantiation of the CPPM sweep, K1 or K2
+   has a stack frame or spills;
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
    two CPPM tracers; the ALE remap with ntr 0 and 5, and 37 for the main
@@ -290,7 +290,8 @@ def cppm_inputs(ax, periodic, dtype, dev):
 
 
 # rows of each of tmc0/tmcl/tmcr that the LU solve of a cell's stencil
-# class reads (tracer_edge_coeffs in csrc/cppm_sweep.cu), by class tag
+# class needs (the kernel loads all 12, in the sectors its warp reads
+# anyway), by class tag
 # S0000, S1111, S1110, S0111, S1100, S0110, S0011, S0100, S0010
 TMC_ROWS = (0, 12, 9, 9, 6, 6, 6, 0, 0)
 
@@ -478,17 +479,33 @@ def ale_smem(name):
             for t, dt in (('f', torch.float32), ('d', torch.float64))}
 
 
-def ale_frames_ok(ptxas):
-    """{kernel: all its instantiations (K1: 3 limiters, K2: 9 limiter
-    pairs; f32 and f64) built, with no stack frame and no spills}."""
+# kernels whose every instantiation must build with no stack frame and no
+# spills: the CPPM sweep's 4 variants, K1's 3 limiters, K2's 9 limiter
+# pairs, each in f32 and f64
+FRAME_GATED = {'cppm_sweep': 8, 'ale_regrid': 6, 'ale_remap': 18}
+
+
+def frames_ok(ptxas):
+    """{kernel: all its instantiations built, with no stack frame and no
+    spills} for each kernel of FRAME_GATED."""
     out = {}
-    for name, count in ALE_KERNELS.items():
+    for name, count in FRAME_GATED.items():
         inst = {k: v for k, v in ptxas.get(name, {}).items()
                 if k.startswith(f'{name}_kernel<')}
         out[name] = len(inst) == count and all(
             v.get('stack_frame', 0) == 0 and v.get('spill_stores', 0) == 0
             and v.get('spill_loads', 0) == 0 for v in inst.values())
     return out
+
+
+def cppm_smem():
+    """{axis/dtype: bytes} of dynamic shared memory per block of the CPPM
+    sweep at the main path's line lengths (i: II, j: JJ)."""
+    import torch
+    from blom_tpu_torch.dynamics import cppm_cuda
+    return {f'{a}/{t}': cppm_cuda.shared_bytes(n, ax, dt)
+            for a, ax, n in (('i', -1, II), ('j', -2, JJ))
+            for t, dt in (('f32', torch.float32), ('f64', torch.float64))}
 
 
 def check_momtum(dev, results):
@@ -1115,11 +1132,12 @@ def main():
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     ptxas = {k: ptxas_summary(v['ptxas']) for k, v in info.items()}
-    frames = ale_frames_ok(ptxas)
+    frames = frames_ok(ptxas)
     emit('build', seconds=time.perf_counter() - t0,
          nvcc_seconds={k: v['seconds'] for k, v in info.items()},
-         ptxas=ptxas, ale_no_stack_no_spills=frames,
-         dynamic_smem={'momtum_uv': momentum_smem(),
+         ptxas=ptxas, no_stack_no_spills=frames,
+         dynamic_smem={'cppm_sweep': cppm_smem(),
+                       'momtum_uv': momentum_smem(),
                        **{k: ale_smem(k) for k in ALE_KERNELS}})
 
     results = []

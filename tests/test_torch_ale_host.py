@@ -43,8 +43,10 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _host_build(tmp_path_factory, name):
-    """csrc/<name>.cu built by g++ against the host shim and loaded."""
+def _host_build(tmp_path_factory, name, nargs):
+    """csrc/<name>.cu built by g++ against the host shim and loaded: its
+    entry points <name>_f32 and <name>_f64 take `nargs` pointers, and
+    <name>_kk_max, where the library has one, an int and a long."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip(f'g++ is not installed: the host build of {name} needs '
@@ -67,13 +69,13 @@ def _host_build(tmp_path_factory, name):
                     str(so), str(d / f'{name}.cpp')], check=True,
                    capture_output=True, text=True)
     out = ctypes.CDLL(str(so))
-    nargs = 4 if name == 'ale_regrid' else 3
     for t in ('f32', 'f64'):
         getattr(out, f'{name}_{t}').argtypes = [ctypes.c_void_p] * nargs
         getattr(out, f'{name}_{t}').restype = ctypes.c_int
-    getattr(out, f'{name}_kk_max').argtypes = [ctypes.c_int,
-                                              ctypes.c_longlong]
-    getattr(out, f'{name}_kk_max').restype = ctypes.c_int
+    if hasattr(out, f'{name}_kk_max'):
+        getattr(out, f'{name}_kk_max').argtypes = [ctypes.c_int,
+                                                  ctypes.c_longlong]
+        getattr(out, f'{name}_kk_max').restype = ctypes.c_int
     out.shim_set_block_threads.argtypes = [ctypes.c_int]
     return out
 
@@ -81,13 +83,13 @@ def _host_build(tmp_path_factory, name):
 @pytest.fixture(scope='module')
 def lib(tmp_path_factory):
     """ale_remap.cu (K2) built by g++ against the host shim."""
-    return _host_build(tmp_path_factory, 'ale_remap')
+    return _host_build(tmp_path_factory, 'ale_remap', 3)
 
 
 @pytest.fixture(scope='module')
 def k1(tmp_path_factory):
     """ale_regrid.cu (K1) built by g++ against the host shim."""
-    return _host_build(tmp_path_factory, 'ale_regrid')
+    return _host_build(tmp_path_factory, 'ale_regrid', 4)
 
 
 def _inputs(dtype, ntr, kk=KK, seed=3):

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port.
 
-blom_tpu_torch, chip_smoke.py, momtum_variants.py and ale_variants.py
-import neither JAX nor anything of blom_tpu (note that the name
+blom_tpu_torch, chip_smoke.py, momtum_variants.py, ale_variants.py and
+cppm_variants.py import neither JAX nor anything of blom_tpu (note that the name
 blom_tpu_torch itself begins with "blom_tpu", so module names are
 matched exactly), and importing every module of the package needs no
 CUDA toolkit."""
@@ -17,7 +17,8 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / 'blom_tpu_torch'
 FILES = sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py',
                                          REPO / 'momtum_variants.py',
-                                         REPO / 'ale_variants.py']
+                                         REPO / 'ale_variants.py',
+                                         REPO / 'cppm_variants.py']
 
 
 def _forbidden(name: str) -> bool:
