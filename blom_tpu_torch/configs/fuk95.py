@@ -3,7 +3,8 @@
 Counterpart of `blom_tpu/configs/fuk95.py` (Fukamachi et al. 1995;
 BLOM's mod_fuk95.F90): analytic geometry (geoenv_fuk95, :121-238), zero
 forcing and a geostrophically balanced density front as initial
-condition (inicon_fuk95, :352-416).  Walls at i = 0 and i = itdm-1,
+condition (inicon_fuk95: :352-416 for the cntiso_hybrid coordinate,
+:281-350 for isopyc_bulkml).  Walls at i = 0 and i = itdm-1,
 periodic in j.  Geometry and profiles are host numpy."""
 
 from __future__ import annotations
@@ -114,6 +115,52 @@ def initial_profiles(itdm=ITDM, jtdm=JTDM, kdm=KDM):
         sigma[k] = ((s1 * np.maximum(0., np.minimum(zl, h1) - zu)
                      + s0 * np.maximum(0., zl - np.maximum(zu, h1)))
                     / (zl - zu))
+
+    saln = np.full((kk, jtdm, itdm), saln0)
+    sigmar = sigref[:, None, None] * np.ones((kk, jtdm, itdm))
+    phi = -c.grav * z
+    return z, sigma, saln, sigmar, phi
+
+
+mltmin = 5.   # minimum mixed layer thickness [m] (mod_mxlayr.F90:73)
+
+
+def initial_profiles_isopyc(itdm=ITDM, jtdm=JTDM, kdm=KDM):
+    """Initial state for the isopyc_bulkml vertical coordinate
+    (inicon_fuk95 first branch, mod_fuk95.F90:281-350): bulk mixed layer
+    at the minimum thickness, isopycnic layer interfaces placed where the
+    jet's density profile crosses the reference-density midpoints, and
+    clamped to the mixed layer's base above it, so that many interior
+    layers start massless.  Returns numpy arrays (z, sigma, saln, sigmar,
+    phi)."""
+    kk = kdm
+    drhojet = rhoc * f * u0 * l0 / (c.grav * h1)
+    dsig = (drho + drhojet) / (kk - 4)
+    sigref = np.zeros(kk)
+    sigref[kk - 1] = rhob - c.rho0
+    sigref[kk - 2] = rhoc + .5 * (drho + drhojet) - c.rho0
+    for k in range(kk - 3, -1, -1):
+        sigref[k] = sigref[k + 1] - dsig
+
+    iidx = np.arange(1, itdm + 1)[None, :] * np.ones((jtdm, 1))
+    jidx = np.arange(1, jtdm + 1)[:, None] * np.ones((1, itdm))
+    x = _x_nudge(iidx, jidx, itdm, jtdm)
+    sigm = rhoc * (1. + f * u0 * _x_psi(x) / (c.grav * h1)) - c.rho0
+
+    z = np.zeros((kk + 1, jtdm, itdm))
+    z[1] = .5 * mltmin
+    z[2] = mltmin
+    z[kk - 1] = h1
+    z[kk] = h0
+    for k in range(3, kk - 1):          # 0-based interfaces 3..kk-2
+        sigi = .5 * (sigref[k - 1] + sigref[k])
+        zk = ((sigi - sigm) / drho + .5) * h1
+        z[k] = np.minimum(z[kk - 1] - mindz * (kk - 1 - k),
+                          np.maximum(z[2], zk))
+
+    sigma = sigref[:, None, None] * np.ones((kk, jtdm, itdm))
+    sigma[0] = sigm + .5 * drho * (z[1] + z[0] - h1) / h1
+    sigma[1] = sigm + .5 * drho * (z[2] + z[1] - h1) / h1
 
     saln = np.full((kk, jtdm, itdm), saln0)
     sigmar = sigref[:, None, None] * np.ones((kk, jtdm, itdm))

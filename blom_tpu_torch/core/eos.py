@@ -1,8 +1,9 @@
 """Equation of state: rational-function fit of in-situ density.
 
 Counterpart of the functions of `blom_tpu/core/eos.py` that pgforc,
-pbcor2, the initial state, the ALE regrid, cmnfld and the vertical
-mixing use (BLOM's mod_eos.F90).  In-situ density
+pbcor2, the initial state, the ALE regrid, cmnfld, the vertical mixing
+and the isopycnic phases (convec, diapfl, mxlayr) use (BLOM's
+mod_eos.F90).  In-situ density
 is rho(p, th, s) = P1/P2 with P1, P2 bilinear in p and quadratic in
 (th, s).  Every function is elementwise on tensors and computes in the
 dtype of its inputs; coefficients live in an `EosParams` built by
@@ -203,6 +204,15 @@ def tofsig(e: EosParams, sg, s):
     return (-b - torch.sqrt(b * b - 4.0 * a * c)) / (2.0 * a)
 
 
+def sofsig(e: EosParams, sg, th):
+    """Salinity from (sigma, temperature) [g kg-1] (mod_eos.F90:369-389)."""
+    a = e.ap16 - e.ap26 * sg
+    b = e.ap13 - e.ap23 * sg + (e.ap15 - e.ap25 * sg) * th
+    c = e.ap11 - e.ap21 * sg + (e.ap12 - e.ap22 * sg
+                                + (e.ap14 - e.ap24 * sg) * th) * th
+    return (-b + torch.sqrt(b * b - 4.0 * a * c)) / (2.0 * a)
+
+
 def p_alpha(p1, p2, th, s):
     """Integral of specific volume in pressure [m2 s-2]
     (mod_eos.F90:391-436): truncated odd-power series of the log form."""
@@ -219,6 +229,28 @@ def p_alpha(p1, p2, th, s):
     return 2.0 * r * (aa2 + bb2 * pm
                       + (aa2 - aa1 * bb2 / bb1) * qq
                       * (r1_3 + qq * (r1_5 + qq * (r1_7 + qq * r1_9))))
+
+
+def p_p_alpha(p1, p2, th, s):
+    """Double integral of specific volume in pressure
+    (mod_eos.F90:438-489)."""
+    aa1 = a11 + (a12 + a14 * th + a15 * s) * th + (a13 + a16 * s) * s
+    aa2 = a21 + (a22 + a24 * th + a25 * s) * th + (a23 + a26 * s) * s
+    bb1 = b11 + b12 * th + b13 * s
+    bb2 = b21 + b22 * th + b23 * s
+
+    pm = .5 * (p2 + p1)
+    dp = .5 * (p2 - p1)
+    r = dp / (aa1 + bb1 * pm)
+    q = bb1 * r
+    r1_3, r1_5, r1_7, r1_9, r1_10 = 1 / 3., 1 / 5., 1 / 7., 1 / 9., 1 / 10.
+    return 2.0 * dp * r * (
+        aa2 + bb2 * pm
+        + (aa2 - aa1 * bb2 / bb1) * q
+        * (r1_3 + q * (r1_3
+           + q * (r1_5 + q * (r1_5
+              + q * (r1_7 + q * (r1_7
+                 + q * (r1_9 + q * (r1_9 + q * r1_10)))))))))
 
 
 def delphi(p1, p2, th, s):

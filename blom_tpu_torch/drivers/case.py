@@ -34,11 +34,8 @@ def build_case(limits_path: str = None, cfg: RunConfig = None,
     dtype = _DTYPES[cfg.dtype]
 
     if cfg.expcnf == 'fuk95':
-        if cfg.vcoord.vcoord_type == 'isopyc_bulkml':
-            raise NotImplementedError(
-                "vcoord_type 'isopyc_bulkml' (the isopycnic coordinate) is "
-                'not ported to blom_tpu_torch')
-        model = standalone.build_fuk95(dtype=dtype, device=device)
+        model = standalone.build_fuk95(dtype=dtype, device=device,
+                                       vcoord=cfg.vcoord.vcoord_type)
     elif cfg.expcnf == 'channel':
         model = standalone.build_channel(dtype=dtype, baclin=cfg.baclin,
                                          batrop=cfg.batrop, device=device)

@@ -71,16 +71,19 @@ def _assemble(grid, e, par, clock, state, forcing, dtype, device) -> Model:
 
 
 def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
-                device=None) -> Model:
+                device=None, vcoord='cntiso_hybrid') -> Model:
     """Assemble the fuk95 experiment (tests/fuk95/limits deck values).
 
-    Matches blom_tpu's build_fuk95 (cntiso_hybrid, no extra tracers)
-    field for field: the ALE regrid/remap (`make_ale_params(kdm)`), the
-    CVMix-lite vertical mixing (`VmixParams()`), the lateral diffusivity
-    estimate (`DifestParams()`) and Jerlov type-3 shortwave absorption.
+    Matches blom_tpu's build_fuk95 (no extra tracers) field for field.
+    With the default vertical coordinate: the ALE regrid/remap
+    (`make_ale_params(kdm)`), the CVMix-lite vertical mixing
+    (`VmixParams()`), the lateral diffusivity estimate (`DifestParams()`)
+    and Jerlov type-3 shortwave absorption;
     ``par._replace(ale=None, vmix=None, difest=None)`` gives the
-    adiabatic dynamical core.  `device` defaults to CUDA and raises when
-    CUDA is missing."""
+    adiabatic dynamical core.  With ``vcoord='isopyc_bulkml'``: the
+    isopycnic initial state (a 5 m mixed layer over isopycnic layers,
+    many of them massless), ``vcoord_isopyc=True`` and no ALE.  `device`
+    defaults to CUDA and raises when CUDA is missing."""
     from ..configs import fuk95 as cfg
 
     device = _device(device)
@@ -94,7 +97,10 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     grid = cfg.make_grid(baclin, itdm, jtdm, kdm, dtype=dtype, device=device)
     e = eos.init_eos(pref=0., expcnf='fuk95')
 
-    z, sigma, saln, sigmar, phi = cfg.initial_profiles(itdm, jtdm, kdm)
+    isopyc = vcoord == 'isopyc_bulkml'
+    profiles = (cfg.initial_profiles_isopyc if isopyc
+                else cfg.initial_profiles)
+    z, sigma, saln, sigmar, phi = profiles(itdm, jtdm, kdm)
     # temperature from the analytic profile, in f64 on the host
     temp = eos.tofsig(e, torch.from_numpy(sigma),
                       torch.from_numpy(saln)).numpy()
@@ -106,8 +112,8 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
         momtum=MomtumParams(vsc2hi=.2, vsc2lo=.2, cbar=.05, cb=.002,
                             mommth='enscon'),
         barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
-        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
-        ale=make_ale_params(kdm), itriag=-1, itrbgc=-1)
+        pgfmth='dynamic enthalpy', vcoord_isopyc=isopyc,
+        ale=None if isopyc else make_ale_params(kdm), itriag=-1, itrbgc=-1)
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
     return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 

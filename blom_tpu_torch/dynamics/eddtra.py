@@ -1,10 +1,13 @@
-"""Eddy-induced (bolus) transport: Gent-McWilliams for the ALE path.
+"""Eddy-induced (bolus) transport: Gent-McWilliams.
 
-Counterpart of `eddtra` of `blom_tpu/dynamics/eddtra.py` (BLOM's
-mod_eddtra.F90 eddtra_ale, :1001-1800): the GM interface streamfunction
--kappa * neutral slope as a mass flux, ramped linearly to zero through
-the mixed layer, and limited so that no cell loses more than ffac = 1/16
-of its mass in a step.  The isopycnic variant is not ported.
+Counterpart of `blom_tpu/dynamics/eddtra.py`: `eddtra` for the ALE path
+(BLOM's mod_eddtra.F90 eddtra_ale, :1001-1800), the GM interface
+streamfunction -kappa * neutral slope as a mass flux, ramped linearly to
+zero through the mixed layer; `eddtra_isopyc` for the isopycnic
+coordinate (eddtra_gm_isopyc_bulkml, :228-1000), where the interfaces
+are the neutral surfaces and the streamfunction is kappa times their
+pressure slope.  Both are limited so that no cell loses more than
+ffac = 1/16 of its mass in a step.
 
 The limiter repeats alternating up/down sweeps over the layers until a
 sweep changes no column (at most N_SWEEPS_MAX).  A column that a sweep
@@ -142,19 +145,84 @@ def eddtra(grid: Grid, s: State, cf: CmnFields, dfl: DiffusionFields,
         avail_c = torch.clamp(torch.minimum(p[1:], pbuv) - p[:-1], min=0.)
         return mfl * mask, avail_n, avail_c
 
-    mu, anu, acu = direction(iu, im1, cf.nslpx, s.dpu[n], s.pbu[n],
-                             grid.scuy)
-    mv, anv, acv = direction(iv, jm1, cf.nslpy, s.dpv[n], s.pbv[n],
-                             grid.scvx)
-    # the u and v problems side by side in one limiter
+    return _limited_layer_fluxes(
+        grid, dfl, m,
+        direction(iu, im1, cf.nslpx, s.dpu[n], s.pbu[n], grid.scuy),
+        direction(iv, jm1, cf.nslpy, s.dpv[n], s.pbv[n], grid.scvx))
+
+
+def _limited_layer_fluxes(grid: Grid, dfl: DiffusionFields, m: int,
+                          u_parts, v_parts) -> DiffusionFields:
+    """dfl with level m of umfltd/vmfltd from the u and v interface
+    fluxes, each (mfl, avail_n, avail_c), limited side by side in one
+    limiter; a layer's mass flux is the streamfunction difference
+    (:1438-1449)."""
+    (mu, anu, acu), (mv, anv, acv) = u_parts, v_parts
     mfl = _limit_mfl(torch.stack([mu, mv], 1), torch.stack([anu, anv], 1),
                      torch.stack([acu, acv], 1),
-                     torch.stack([im1(grid.scp2), jm1(grid.scp2)], 0),
+                     torch.stack([grid.im1(grid.scp2),
+                                  grid.jm1(grid.scp2)], 0),
                      grid.scp2)
-    # layer mass flux = streamfunction difference (:1438-1449)
-    umfltd = (mfl[1:, 0] - mfl[:-1, 0]) * iu
-    vmfltd = (mfl[1:, 1] - mfl[:-1, 1]) * iv
     um, vm = dfl.umfltd.clone(), dfl.vmfltd.clone()
-    um[m] = umfltd
-    vm[m] = vmfltd
+    um[m] = (mfl[1:, 0] - mfl[:-1, 0]) * grid.iu
+    vm[m] = (mfl[1:, 1] - mfl[:-1, 1]) * grid.iv
     return dataclasses.replace(dfl, umfltd=um, vmfltd=vm)
+
+
+def eddtra_isopyc(grid: Grid, s: State, dfl: DiffusionFields,
+                  m: int, n: int, delt1) -> DiffusionFields:
+    """dfl with the GM eddy-induced mass fluxes umfltd/vmfltd of mid
+    level m in the isopycnic coordinate (eddtra_gm_isopyc_bulkml,
+    mod_eddtra.F90:228-1000), as blom_tpu's `eddtra_isopyc`: the
+    interface streamfunction -kappa * dp/dx on the interfaces below the
+    first physical layer of both adjacent columns, ramped linearly to
+    zero through the mixed layer, none where the mixed layer reaches the
+    bottom on both sides; then the same limiter as `eddtra`."""
+    kk = grid.kk
+    iu, iv, ip = grid.iu, grid.iv, grid.ip
+    im1, jm1 = grid.im1, grid.jm1
+
+    p = cumulative_p(s.dp[n]) * ip
+    kfpla = s.kfpla[n]
+    kidx = torch.arange(kk + 1, device=p.device).reshape(
+        (kk + 1,) + (1,) * (p.ndim - 1))
+
+    def direction(mask, nbr, dpuv, pbuv, scuv, scuvxi):
+        kappa = .5 * (nbr(dfl.difint) + dfl.difint)
+        kappa_i = torch.cat([kappa[:1], .5 * (kappa[:-1] + kappa[1:]),
+                             kappa[-1:]], 0)
+        # interface pressure slope at the velocity point [Pa m-1]
+        dpdx = (p - nbr(p)) * scuvxi[None]
+        et2mf = -grav * rho0 * delt1 * scuv
+        mfl_gm = -kappa_i * (-dpdx / (grav * rho0)) * et2mf * mask
+
+        # interfaces above the first physical interior layer of both
+        # adjacent columns are mixed-layer interfaces; with the mixed
+        # layer to the bottom on both sides there is no flux
+        kintr = torch.maximum(kfpla, nbr(kfpla))
+        interior = (kidx >= kintr[None]) & (kidx < kk)
+        active = (kintr <= kk)[None]
+
+        # linear ramp through the mixed layer from the value at the
+        # first interior interface (:430-470)
+        first_int = (torch.cumsum(interior.to(torch.int32), 0) == 1) \
+            & interior
+        mfl_base = torch.where(first_int, mfl_gm, 0.).sum(0)
+        p_base = torch.where(first_int, p, 0.).sum(0)
+        puv = cumulative_p(dpuv)
+        frac = torch.clamp(puv / torch.clamp(p_base[None], min=epsilp),
+                           0., 1.)
+        mfl = torch.where(interior, mfl_gm, mfl_base[None] * frac)
+        mfl = torch.where(active, mfl, 0.)
+        mfl[0] = 0.
+        mfl[kk] = 0.
+
+        avail_n = torch.clamp(torch.minimum(nbr(p[1:]), pbuv) - nbr(p[:-1]),
+                              min=0.)
+        avail_c = torch.clamp(torch.minimum(p[1:], pbuv) - p[:-1], min=0.)
+        return mfl * mask, avail_n, avail_c
+
+    return _limited_layer_fluxes(
+        grid, dfl, m,
+        direction(iu, im1, s.dpu[n], s.pbu[n], grid.scuy, grid.scuxi),
+        direction(iv, jm1, s.dpv[n], s.pbv[n], grid.scvx, grid.scvyi))

@@ -454,11 +454,12 @@ def momtum_uv(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
 
 
 def momtum(grid: Grid, s: State, forcing: Forcing, par: MomtumParams,
-           difwgt, m: int, n: int, delt1, dlt):
+           difwgt, m: int, n: int, delt1, dlt, vcoord_isopyc: bool = False):
     """Advance baroclinic velocity from old level n using mid level m.
     Updates `s` in place and returns (state, utotn_out, vtotn_out): the
     depth-mean velocity tendency for the barotropic solver
-    (mod_momtum.F90:1154-1269)."""
+    (mod_momtum.F90:1154-1269).  In the isopycnic coordinate the wind
+    stress acts on the top layer over the mixed layer's upper part."""
     kk = grid.kk
     ip, iu, iv = grid.ip, grid.iu, grid.iv
     im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
@@ -500,10 +501,18 @@ def momtum(grid: Grid, s: State, forcing: Forcing, par: MomtumParams,
     vbrhs = s.vbcors_p * tsfac * iv
 
     # ---- wind stress (mod_momtum.F90:917-946)
-    stress_u = -(forcing.mu_nonloc[:-1] - forcing.mu_nonloc[1:]) \
-        * forcing.taux * grav * grid.scux / torch.clamp(dpu_m, min=onemm)
-    stress_v = -(forcing.mv_nonloc[:-1] - forcing.mv_nonloc[1:]) \
-        * forcing.tauy * grav * grid.scvy / torch.clamp(dpv_m, min=onemm)
+    if vcoord_isopyc:
+        stress_u = torch.zeros_like(dpu_m)
+        stress_u[0] = (-2. * forcing.taux * grav * grid.scux
+                       / torch.clamp(p[1] + im1(p[1]), min=epsilp))
+        stress_v = torch.zeros_like(dpv_m)
+        stress_v[0] = (-2. * forcing.tauy * grav * grid.scvy
+                       / torch.clamp(p[1] + jm1(p[1]), min=epsilp))
+    else:
+        stress_u = -(forcing.mu_nonloc[:-1] - forcing.mu_nonloc[1:]) \
+            * forcing.taux * grav * grid.scux / torch.clamp(dpu_m, min=onemm)
+        stress_v = -(forcing.mv_nonloc[:-1] - forcing.mv_nonloc[1:]) \
+            * forcing.tauy * grav * grid.scvy / torch.clamp(dpv_m, min=onemm)
     stress_u = stress_u * iu
     stress_v = stress_v * iv
 

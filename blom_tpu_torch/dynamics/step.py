@@ -1,14 +1,19 @@
 """One baroclinic model step.
 
 Counterpart of `blom_tpu/dynamics/step.py` (BLOM's
-mod_blom_step.F90:74-324) for the ALE (cntiso_hybrid) configuration:
-tmsmt1, the ALE regrid/remap, cmnfld with the lateral diffusivities and
-the GM eddy transport, advect (CPPM), pbcor1, the along-layer lateral
-diffusion, pgforc (dynamic enthalpy), momtum (enscon), the CVMix-lite
-vertical mixing with the implicit vertical diffusion of tracers and
-momentum, barotp, pbcor2 and tmsmt2, each under blom_tpu's guard.
-`check_supported` raises NotImplementedError naming every option the
-port does not run (see there).
+mod_blom_step.F90:74-324) for both vertical coordinates.  The ALE
+(cntiso_hybrid) step: tmsmt1, the ALE regrid/remap, cmnfld with the
+lateral diffusivities and the GM eddy transport, advect (CPPM), pbcor1,
+the along-layer lateral diffusion, pgforc (dynamic enthalpy), momtum,
+the CVMix-lite vertical mixing with the implicit vertical diffusion of
+tracers and momentum, barotp, pbcor2 and tmsmt2.  The isopycnic
+(isopyc_bulkml) step: no regrid, the isopycnic GM (eddtra_isopyc) when
+egc > 0, the mixed-layer wind stress in momtum, then convec, the
+diapycnal mixing (diapfl) with the CVMix-lite diffusivity and the bulk
+mixed layer (mxlayr) in place of the implicit vertical diffusion.  Each
+phase runs under blom_tpu's guard.  `check_supported` raises
+NotImplementedError naming every option the port does not run (see
+there).
 
 The step updates the State in place; m, n are the Python-int time-level
 slots and delt1 a Python float.  The eddy-transport limiter reads one
@@ -32,12 +37,15 @@ from .ale import AleParams, ale_regrid_remap, unported_ale
 from .ale_vdiff import ale_vdifft, ale_vdiffm
 from .barotp import BarotpParams, barotp
 from .cmnfld import cmnfld
+from .convec import convec
 from .cppm import CppmCoeffs
+from .diapfl import diapfl
 from .difest import DifestParams, difest_lateral
 from .diffus import diffus
 from .diffusion_fields import DiffusionFields
-from .eddtra import eddtra
+from .eddtra import eddtra, eddtra_isopyc
 from .momtum import MomtumParams, momtum
+from .mxlayr import MxlayrParams, mxlayr
 from .pbcor import pbcor1, pbcor2
 from .pgforc import pgforc
 from .tmsmt import tmsmt1, tmsmt2
@@ -71,6 +79,7 @@ class StepParams(NamedTuple):
     nday_in_year: float = 360.
     difest: Optional[DifestParams] = DifestParams()
     thermf: Optional[ThermfParams] = ThermfParams()
+    mxlayr: MxlayrParams = MxlayrParams()
     ltedtp: str = 'layer'     # 'layer' | 'neutral' (mod_diffusion.F90:99)
 
 
@@ -82,18 +91,19 @@ def _diffus_on(par: StepParams) -> bool:
 def check_supported(grid: Grid, par: StepParams):
     """Raise NotImplementedError, naming the option, for anything this
     port does not run: the direct regrid and reconstructions other than
-    PPM, KPP and tidal mixing, neutral diffusion, the isopycnic
-    coordinate, other advection schemes, the ideal-age, BGC and TKE/GLS
-    tracers, surface restoring and tripolar grids."""
+    PPM, KPP and tidal mixing, neutral diffusion, other advection
+    schemes, the ideal-age, BGC and TKE/GLS tracers, surface restoring
+    and tripolar grids.  On the isopycnic path the message says so; that
+    path runs no regrid and diffuses along layers whatever ltedtp says,
+    as blom_tpu's step does."""
     missing = []
-    if par.ale is not None:
+    if par.ale is not None and not par.vcoord_isopyc:
         missing += unported_ale(par.ale)
     if par.vmix is not None:
         missing += unported_vmix(par.vmix)
-    if _diffus_on(par) and par.ltedtp == 'neutral':
+    if _diffus_on(par) and par.ltedtp == 'neutral' \
+            and not par.vcoord_isopyc:
         missing.append("neutral diffusion (ltedtp='neutral')")
-    if par.vcoord_isopyc:
-        missing.append('isopycnic coordinate (par.vcoord_isopyc)')
     if par.advmth != 'cppm':
         missing.append(f'advection advmth={par.advmth!r}')
     if par.itriag >= 0:
@@ -108,7 +118,8 @@ def check_supported(grid: Grid, par: StepParams):
     if grid.arctic:
         missing.append('tripolar grid')
     if missing:
-        raise NotImplementedError('not ported to blom_tpu_torch: '
+        where = ' (isopycnic coordinate)' if par.vcoord_isopyc else ''
+        raise NotImplementedError(f'not ported to blom_tpu_torch{where}: '
                                   + '; '.join(missing))
 
 
@@ -145,25 +156,28 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     them).  Vertical mixing runs when par.vmix and swabs are given."""
     check_supported(grid, par)
     dlt = par.dlt
+    isopyc = par.vcoord_isopyc
     _mark('init_fluxes+tmsmt1')
     s = init_fluxes(s, m)
-    s = tmsmt1(grid, s, n)
+    s = tmsmt1(grid, s, n, isopyc)
 
     # ALE vertical regrid + remap (mod_blom_step.F90:131-135)
-    if par.ale is not None:
+    if not isopyc and par.ale is not None:
         _mark('ale_regrid_remap')
         s = ale_regrid_remap(grid, e, par.ale, s, m, n, delt1)
 
     # derived fields, lateral diffusivities, GM eddy transport
-    # (mod_blom_step.F90:136-147)
-    if par.difest is not None:
+    # (mod_blom_step.F90:136-147; the isopycnic GM is
+    # eddtra_gm_isopyc_bulkml, mod_eddtra.F90:228)
+    if par.difest is not None and (not isopyc or par.difest.egc > 0.):
         _mark('cmnfld')
         cf = cmnfld(grid, e, s, n)
         _mark('difest_lateral')
         dfl = difest_lateral(grid, s, cf, par.difest, dfl, m, n)
         if par.difest.egc > 0.:
             _mark('eddtra')
-            dfl = eddtra(grid, s, cf, dfl, m, n, delt1)
+            dfl = (eddtra_isopyc(grid, s, dfl, m, n, delt1) if isopyc
+                   else eddtra(grid, s, cf, dfl, m, n, delt1))
 
     _mark('advect')
     s = advect(grid, s, dfl, coeffs_i, coeffs_j, m, n, delt1, dlt,
@@ -180,11 +194,28 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     s = pgforc(grid, e, s, m, n, par.pgfmth)
     _mark('momtum')
     s, utotn, vtotn = momtum(grid, s, forcing, par.momtum, dfl.difwgt,
-                             m, n, delt1, dlt)
+                             m, n, delt1, dlt, isopyc)
 
-    # vertical physics (mod_blom_step.F90:196-207): mixing coefficients
-    # and penetration factors, then implicit vertical diffusion
-    if par.vmix is not None and swabs is not None:
+    if isopyc:
+        # convective adjustment and diapycnal mixing
+        # (mod_blom_step.F90:174-186), then the bulk mixed layer (:191-193)
+        _mark('convec')
+        s = convec(grid, e, s, m, n)
+        if par.vmix is not None and swabs is not None:
+            _mark('difest_vertical')
+            vf = difest_vertical(grid, e, s, forcing, swabs, par.vmix, n)
+            dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t,
+                                      difvso=vf.Kdiff_s, difvmo=vf.Kvisc_m,
+                                      bld=vf.mld * grid.ip)
+            _mark('diapfl')
+            s = diapfl(grid, e, s, vf.Kdiff_t, m, n, delt1)
+        _mark('mxlayr')
+        s, dfl = mxlayr(grid, e, s, forcing, par.mxlayr, m, n, delt1,
+                        swabs=swabs, dfl=dfl)
+    elif par.vmix is not None and swabs is not None:
+        # vertical physics (mod_blom_step.F90:196-207): mixing
+        # coefficients and penetration factors, then implicit vertical
+        # diffusion
         _mark('difest_vertical')
         vf = difest_vertical(grid, e, s, forcing, swabs, par.vmix, n)
         dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t,
@@ -200,7 +231,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     _mark('pbcor2')
     s = pbcor2(grid, e, s, m, n, dlt)
     _mark('tmsmt2')
-    s = tmsmt2(grid, s, m, n)
+    s = tmsmt2(grid, s, m, n, isopyc)
     _mark('end')
     return s, dfl
 

@@ -10,7 +10,7 @@ import torch
 
 from ..core.constants import epsilp
 from ..core.grid import Grid
-from ..core.state import State, cumulative_p
+from ..core.state import State, cumulative_p, dpu_dpv_upstream
 
 # Smoothing weights (mod_tmsmt.F90:46-51).
 wuv1 = .75
@@ -20,17 +20,24 @@ wts2 = .0625
 wbaro = .125
 
 
-def tmsmt1(grid: Grid, s: State, n: int) -> State:
-    """Save old-time-level fields for later smoothing."""
+def tmsmt1(grid: Grid, s: State, n: int, vcoord_isopyc: bool = False) -> State:
+    """Save old-time-level fields for later smoothing; in the isopycnic
+    coordinate also the layer thicknesses at u and v points."""
     s.dpold[n] = s.dp[n]
     s.told.copy_(s.temp[n])
     s.sold.copy_(s.saln[n])
     s.trcold.copy_(s.trc[n])
+    if vcoord_isopyc:
+        s.dpuold.copy_(s.dpu[n])
+        s.dpvold.copy_(s.dpv[n])
     return s
 
 
-def tmsmt2(grid: Grid, s: State, m: int, n: int) -> State:
-    """Blend the mid level with old/new thickness-weighted fields."""
+def tmsmt2(grid: Grid, s: State, m: int, n: int,
+           vcoord_isopyc: bool = False) -> State:
+    """Blend the mid level with old/new thickness-weighted fields; in the
+    isopycnic coordinate re-derive the mid level's dpu/dpv from the
+    blended interfaces."""
     ip = grid.ip
 
     dpold_n = s.dpold[n]
@@ -61,4 +68,6 @@ def tmsmt2(grid: Grid, s: State, m: int, n: int) -> State:
     s.saln[m] = saln_m
     s.trc[m] = trc_m
     s.p = cumulative_p(dp_m_new) * ip
+    if vcoord_isopyc:
+        s.dpu[m], s.dpv[m] = dpu_dpv_upstream(grid, s.p)
     return s

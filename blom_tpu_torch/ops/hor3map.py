@@ -3,7 +3,8 @@
 Counterpart of `blom_tpu/ops/hor3map.py` (BLOM's mod_hor3map.F90) for
 what the nudge regrid and the remap of the ALE step use: explicit
 4th-order PPM edges, the monotonic, non-oscillatory and positive-definite
-limiters, and the fused multi-group remap.  Arrays are (kk[+1], ...)
+limiters, and the fused multi-group remap; and `remap_means`, the
+single-field remap of convec's velocities.  Arrays are (kk[+1], ...)
 with the vertical axis leading, and every operation is the JAX
 package's, in its order, so that f64 results agree to rounding.  The
 k-scans are Python loops over the leading axis.  The implicit-edge
@@ -423,3 +424,32 @@ def remap_groups(groups, bottom_only_empties: bool = False):
                 means_g.append(torch.where(dpd > heps, means, point_l))
         out.append(means_g)
     return out
+
+
+def remap_means(rc: Recon, p_dst):
+    """Destination layer means (I(p_dst[k+1]) - I(p_dst[k])) / dp_dst of
+    one reconstruction (the reference's remap, piecewise integration),
+    as blom_tpu's `remap_means`: one loop over the source layers carries
+    the integral from the column top, the point value of the
+    reconstruction at each destination edge and whether it was found.  A
+    zero-thickness destination layer takes that point value."""
+    dx = torch.clamp(rc.p[1:] - rc.p[:-1], min=0.)
+    dxi = 1.0 / torch.clamp(dx, min=heps)
+    pq = p_dst
+    acc = torch.zeros_like(pq)
+    point = torch.zeros_like(pq)
+    found = torch.zeros(pq.shape, dtype=torch.bool, device=pq.device)
+    for k in range(dx.shape[0]):
+        p_up, dxk = rc.p[k][None], dx[k][None]
+        c0, c1, c2 = rc.c0[k][None], rc.c1[k][None], rc.c2[k][None]
+        x = torch.clamp((pq - p_up) * dxi[k][None], 0., 1.)
+        x2 = x * x
+        acc = acc + dxk * (c0 * x + .5 * c1 * x2 + (1. / 3.) * c2 * x2 * x)
+        # point value at pq where it falls inside this (nonempty) layer
+        inl = (pq >= p_up) & (pq <= p_up + dxk) & (dxk > heps) & ~found
+        point = torch.where(inl, c0 + c1 * x + c2 * x2, point)
+        found = found | inl
+    dpd = p_dst[1:] - p_dst[:-1]
+    means = (acc[1:] - acc[:-1]) / torch.clamp(dpd, min=heps)
+    point_l = torch.where(found[:-1], point[:-1], means)
+    return torch.where(dpd > heps, means, point_l)

@@ -43,9 +43,20 @@ Phases, each reported as one JSON line; any failure exits nonzero:
 5. parity: the full step at 24x8x8 in f64 on the card against the CPU,
    one step at each time-level parity (gated), and 4 driver steps
    (reported);
-6. decks: each limits deck of DECKS (written under build/decks/) built
-   by the port's build_case, first as fuk95 at 384x360x53 in f32 for 10
-   timed steps after a 2-step warm-up, then as the channel at its full
+6. isopyc: fuk95 in the isopycnic coordinate (isopyc_bulkml: convec,
+   diapfl, mxlayr, eddtra_isopyc) with bench.py's physics at 384x360x53
+   in f32, 10 timed steps after a 2-step warm-up: finite fields, mass
+   drift, the mixed layer's thickness over water within ISOPYC_ML,
+   launches (CPPM 2 and momentum 1 per step, no ALE kernel), host
+   syncs, seconds per step and grid-points/s, then the device time of
+   each phase; isopyc_kernels: the inputs of the CPPM sweep on both axes
+   and of the momentum core in one step from the warmed-up state (many
+   layers massless, counted), each kernel against its plain version in
+   f32 (F32_REL) and on the same inputs in f64 (1e-12); isopyc_parity:
+   one f64 step of each time-level parity at 24x8x10, card against CPU;
+7. decks: each limits deck of DECKS (written under build/decks/) built
+   by the port's build_case, first as fuk95 at 384x360x53 in f32 for 4
+   timed steps after a 1-step warm-up, then as the channel at its full
    208x512 width with 16 layers in f64 for one timed step after a
    one-step warm-up (CHANNEL_KDM, CHANNEL_DTYPE: see there), the runs
    each from the initial state: finite fields, mass drift, salinity near
@@ -53,9 +64,9 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    every (kernel, instantiation) per step, seconds per step and
    grid-points/s; for the channel then one f64 step of each time-level
    parity at 24x32x10 on the card against the CPU (gated);
-7. the kernels summary line, then the device line last.  It fails if a
+8. the kernels summary line, then the device line last.  It fails if a
    variant of a kernel launched on none of the paths (fuk95, the core,
-   the decks).
+   the isopycnic path, the decks).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -104,6 +115,7 @@ CHANNEL_DTYPE = 'float64'
 # this
 CHANNEL_SPEED = (1e-4, 2.)
 PARITY_CHANNEL = dict(ITDM=24, JTDM=32, KDM=10)
+NSTEPS_ISOPYC = 10      # timed steps of the isopycnic path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 
@@ -858,7 +870,7 @@ def run_core(model, mass0, paths, nsteps=4):
     return ok
 
 
-def profile_phases(model, nsteps=4):
+def profile_phases(model, nsteps=4, phase='phase_profile'):
     """Device milliseconds of each phase of the step, from the CUDA events
     that blom_step records while `step.phase_marks` is a list."""
     import torch
@@ -874,7 +886,7 @@ def profile_phases(model, nsteps=4):
     for (name, e0), (_, e1) in zip(marks, marks[1:]):
         if name != 'end':
             ms[name] = ms.get(name, 0.) + e0.elapsed_time(e1) / nsteps
-    emit('phase_profile', steps=nsteps,
+    emit(phase, steps=nsteps,
          step_ms=marks[0][1].elapsed_time(marks[-1][1]) / nsteps,
          phase_ms=dict(sorted(ms.items(), key=lambda kv: -kv[1])))
 
@@ -941,6 +953,200 @@ def run_parity(dev, nsteps=4):
     return ok
 
 
+# ------------------------------------------------------------ isopycnic
+
+ISOPYC = 'isopyc_bulkml'
+# mixed-layer thickness over water [m] after the timed steps: fuk95 has
+# no forcing, so the mixed layer stays near its 5 m minimum
+# (tests/test_configs.py:67-68)
+ISOPYC_ML = (2., 12.)
+PARITY_ISOPYC = dict(itdm=24, jtdm=8, kdm=10)
+
+
+def build_isopyc(dev, dtype, **size):
+    """fuk95 in the isopycnic coordinate with bench.py's physics, which
+    runs cmnfld, the lateral diffusivities, eddtra_isopyc and diffus."""
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    model = standalone.build_fuk95(dtype=dtype, vcoord=ISOPYC, device=dev,
+                                   **size)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
+    return model
+
+
+def isopyc_gates(model, s, nsteps, mass0):
+    """Finite fields, mass drift <= 1e-5, the mixed layer within
+    ISOPYC_ML over water, kfpla within [2, kk] (salinity is not uniform
+    here: convec and diapfl set S from the layer's reference density)."""
+    import torch
+    from blom_tpu_torch.core.constants import onem
+    new = 1 if nsteps % 2 == 0 else 0
+    g = model.grid
+    wet = g.ip > 0
+    finite = all(bool(torch.isfinite(getattr(s, f)).all())
+                 for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
+    drift = (mass(model, s.dp[new]) - mass0) / mass0
+    ml = ((s.dp[new][0] + s.dp[new][1]).double() / onem)[wet]
+    kf = s.kfpla[new][wet]
+    ml_lo, ml_hi = float(ml.min()), float(ml.max())
+    ok = (finite and abs(drift) <= 1e-5
+          and ISOPYC_ML[0] < ml_lo and ml_hi < ISOPYC_ML[1]
+          and int(kf.min()) >= 2 and int(kf.max()) <= g.kk)
+    return ok, dict(finite=finite, rel_mass_drift=drift,
+                    ml_thickness_m=[ml_lo, ml_hi],
+                    kfpla=[int(kf.min()), int(kf.max())],
+                    max_abs_v=float(s.v.abs().max()))
+
+
+def run_isopyc(dev, paths):
+    """The isopycnic path at the main path's width in f32: 2 warm-up and
+    NSTEPS_ISOPYC timed steps, launches per step, gates, s/step and
+    grid-points/s, then the device time of each phase; then its kernels
+    on their inputs from this run (check_isopyc_kernels)."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    t0 = time.perf_counter()
+    model = build_isopyc(dev, torch.float32, itdm=II, jtdm=JJ, kdm=KK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mass0 = mass(model, model.state.dp[1])
+    s_warm, clock = standalone.run(model, 2)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, NSTEPS_ISOPYC)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    syncs = counts.pop('host_syncs')
+    paths['fuk95_isopyc'] = counts
+    ok, rec = isopyc_gates(model, s, NSTEPS_ISOPYC, mass0)
+    ok &= launches_ok(counts, model.par, NSTEPS_ISOPYC)
+    emit('isopyc', shape=[KK, JJ, II], dtype='float32',
+         build_seconds=build_s, warmup_steps=2, steps=NSTEPS_ISOPYC, ok=ok,
+         **rec, launches=counts,
+         host_syncs_per_step=syncs / NSTEPS_ISOPYC,
+         seconds_per_step=wall / NSTEPS_ISOPYC,
+         gridpoints_per_s=II * JJ * KK * NSTEPS_ISOPYC / wall)
+    profile_phases(model, 2, 'isopyc_phase_profile')
+    ok &= check_isopyc_kernels(model, s_warm, clock.delt1)
+    return ok
+
+
+def capture_kernel_inputs(model, s, delt1):
+    """The inputs of every CPPM sweep and momentum call of one step from
+    state `s` (parity m, n = 0, 1), cloned as each wrapper receives
+    them."""
+    import dataclasses
+    from blom_tpu_torch.dynamics import cppm_cuda, momtum_cuda, step
+
+    def clone(x):
+        return x.clone() if hasattr(x, 'clone') else x
+
+    calls = {'cppm_sweep': [], 'momtum_uv': []}
+    orig = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
+            'momtum_uv': momtum_cuda.momtum_uv_cuda}
+
+    def cppm_cap(*a, **kw):
+        calls['cppm_sweep'].append(([clone(x) for x in a], dict(kw)))
+        return orig['cppm_sweep'](*a, **kw)
+
+    def momtum_cap(grid, par, f, d2, tsfac, d1):
+        calls['momtum_uv'].append(
+            ([grid, par, type(f)(*map(clone, f)), type(d2)(*map(clone, d2)),
+              tsfac, d1], {}))
+        return orig['momtum_uv'](grid, par, f, d2, tsfac, d1)
+
+    cppm_cuda.cppm_sweep_cuda = cppm_cap
+    momtum_cuda.momtum_uv_cuda = momtum_cap
+    try:
+        step.blom_step(model.grid, model.e, model.par, model.coeffs_i,
+                       model.coeffs_j, s.clone(), model.forcing,
+                       dataclasses.replace(model.dfl), 0, 1, delt1,
+                       model.swabs)
+    finally:
+        cppm_cuda.cppm_sweep_cuda = orig['cppm_sweep']
+        momtum_cuda.momtum_uv_cuda = orig['momtum_uv']
+    return calls
+
+
+def _to_f64(x):
+    """x with its floating tensors (also inside a grid or a tuple) in
+    f64."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _to_f64(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+    if isinstance(x, tuple) and hasattr(x, '_fields'):
+        return type(x)(*map(_to_f64, x))
+    return x
+
+
+def check_isopyc_kernels(model, s, delt1):
+    """The CPPM sweep on each axis and the momentum core on the inputs
+    one isopycnic step gives them (many layers massless), each against
+    its plain version: in f32 within F32_REL, and the same inputs cast to
+    f64 within 1e-12."""
+    import torch
+    from blom_tpu_torch.dynamics import cppm, cppm_cuda, momtum, momtum_cuda
+    calls = capture_kernel_inputs(model, s, delt1)
+    wet = model.grid.ip > 0
+    kernel = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
+              'momtum_uv': momtum_cuda.momtum_uv_cuda}
+
+    def plain(name, a, kw):
+        if name == 'momtum_uv':
+            return momtum._uv_body(*a)
+        return cppm._cppm_sweep_body(
+            *a, kw.get('div_corr'), kw['ax'], kw['compatibility'],
+            kw['limiting'])
+
+    ok_all = len(calls['cppm_sweep']) == 2 and len(calls['momtum_uv']) == 1
+    for name, cl in calls.items():
+        for a, kw in cl:
+            h = a[0] if name == 'cppm_sweep' else a[2].dp_m
+            rec = dict(kernel=name, n_layers_dp_zero=int(
+                ((h == 0) & wet).sum()), wet_cells=int(wet.sum()) * h.shape[0])
+            if name == 'cppm_sweep':
+                rec['ax'] = kw['ax']
+            ok = True
+            for tag, args, kwt in (
+                    ('f32', a, kw),
+                    ('f64', [_to_f64(x) for x in a],
+                     {k: _to_f64(v) for k, v in kw.items()})):
+                out = kernel[name](*args, **kwt)
+                ref = plain(name, args, kwt)
+                torch.cuda.synchronize()
+                o, e_abs, e_rel = compare(out, ref, args[0].dtype
+                                          if name == 'cppm_sweep'
+                                          else args[2].u_m.dtype)
+                rec[f'{tag}_ok'], rec[f'{tag}_max_abs_err'] = o, e_abs
+                rec[f'{tag}_max_rel_err'] = e_rel
+                ok &= o
+            rec['ok'] = ok
+            emit('isopyc_kernels', **rec)
+            ok_all &= ok and rec['n_layers_dp_zero'] > 0
+    return ok_all
+
+
+def run_isopyc_parity(dev):
+    """One f64 step of each time-level parity of the isopycnic path at
+    PARITY_ISOPYC size, card against CPU, within STEP_REL."""
+    import torch
+    models = {d: build_isopyc(d, torch.float64, **PARITY_ISOPYC)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev)
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('isopyc_parity', ok=ok, tolerance=STEP_REL, size=PARITY_ISOPYC,
+         one_step=one_step)
+    return ok
+
+
 # ------------------------------------------------------------------ decks
 
 def deck_path(name, dtype, expcnf):
@@ -977,11 +1183,12 @@ def build_deck_case(cfg, device, **size):
             setattr(mod, k, v)
 
 
-# Each deck runs as fuk95 at the main path's size in f32 for 2 + 10
-# steps, and as the channel at its full width in f64 for one step (see
-# CHANNEL_KDM).  {expcnf: (dtype, size, warm-up steps, timed steps)}
+# Each deck runs as fuk95 at the main path's size in f32 for 1 + 4
+# steps (2 + 10 until the isopycnic phases took ~2 minutes more), and as
+# the channel at its full width in f64 for one step (see CHANNEL_KDM).
+# {expcnf: (dtype, size, warm-up steps, timed steps)}
 DECK_RUNS = {
-    'fuk95': ('float32', dict(itdm=II, jtdm=JJ, kdm=KK), 2, 10),
+    'fuk95': ('float32', dict(itdm=II, jtdm=JJ, kdm=KK), 1, 4),
     'channel': (CHANNEL_DTYPE, dict(KDM=CHANNEL_KDM), 1, 1),
 }
 
@@ -1148,6 +1355,8 @@ def main():
     paths = {}
     ok &= run_slice(dev, paths)
     ok &= run_parity(dev)
+    ok &= run_isopyc(dev, paths)
+    ok &= run_isopyc_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)

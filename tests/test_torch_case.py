@@ -25,6 +25,9 @@ CPPM) are written to files in f64 and read by both packages:
 - in f64 blom_tpu's own channel, run op by op, turns NaN within a few
   steps too (deck C at 16x24x8: finite after the first step, NaN after
   the ninth; ROADMAP section 3);
+- a fuk95 deck with &VCOORD VCOORD_TYPE = 'isopyc_bulkml' builds the
+  isopycnic fuk95 through both packages' build_case, with the same
+  parameters and (to rounding) the same initial state;
 - a &DIAPHY group and experiments other than fuk95 and channel raise."""
 
 import dataclasses
@@ -210,6 +213,36 @@ def test_f64_channel_turns_nan_in_blom_tpu(built):
                               for f in ('dp', 'temp', 'saln', 'u', 'v',
                                         'pb')))
     assert finite[0] and not finite[-1], finite
+
+
+def test_isopyc_deck_builds_as_blom_tpu(tmp_path):
+    """The deck's vertical coordinate reaches build_fuk95: the isopycnic
+    fuk95 at the deck's default size, with blom_tpu's parameters and
+    initial state."""
+    path = tmp_path / 'limits_fuk95_isopyc'
+    path.write_text(deck_text('C', 'float64', 'fuk95')
+                    + "&VCOORD\n  VCOORD_TYPE = 'isopyc_bulkml'\n/\n")
+    jm, jcfg = jcase.build_case(str(path))
+    tm, tcfg = tcase.build_case(str(path), device='cpu')
+    assert tcfg.vcoord.vcoord_type == jcfg.vcoord.vcoord_type \
+        == 'isopyc_bulkml'
+    assert tm.par.vcoord_isopyc and tm.par.ale is None
+    for f in ('baclin', 'lstep', 'dlt', 'pgfmth', 'advmth',
+              'cppm_compatibility', 'cppm_limiting', 'vcoord_isopyc', 'ale',
+              'ltedtp'):
+        assert getattr(tm.par, f) == getattr(jm.par, f), f
+    for f in ('momtum', 'barotp', 'vmix', 'difest', 'mxlayr'):
+        assert getattr(tm.par, f)._asdict() == \
+            getattr(jm.par, f)._asdict(), f
+    for f in TENSOR_FIELDS:
+        np.testing.assert_array_equal(getattr(tm.grid, f).numpy(),
+                                      np.asarray(getattr(jm.grid, f)),
+                                      err_msg=f)
+    for f, a in _np_fields(jm.state).items():
+        np.testing.assert_allclose(
+            getattr(tm.state, f).numpy(), a, rtol=0,
+            atol=1e-10 * np.abs(a).max(initial=0.) + 1e-11, err_msg=f)
+    tstep.check_supported(tm.grid, tm.par)
 
 
 def test_diaphy_raises(tmp_path):

@@ -6,7 +6,15 @@ them at 1e-9 (tests/test_eddtra_oracle.py, test_transport_oracles.py,
 test_oracle_parity.py).  The same inputs, made from a seed with numpy,
 go here through the port on CPU in f64, at the same 1e-9: eddtra with
 the depletion limiter idle and firing on many columns, diffus with a
-passive tracer, ale_vdifft column by column.  No JAX is involved."""
+passive tracer, ale_vdifft column by column.
+
+The isopycnic phases, on the random columns of blom_tpu's own oracle
+tests (made here with the port's EOS) and at their tolerances: convec
+against convec_oracle.py (test_convec_oracle.py:98-102), diapfl against
+diapfl_oracle.py and its conservation checks
+(test_diapfl_oracle.py:100-103, 129-136), and mxlayr.entrain_energy
+against the exact-integral mxlayr_oracle.py (test_mxlayr.py:131-132).
+No JAX is involved."""
 
 import numpy as np
 import pytest
@@ -15,13 +23,17 @@ import torch
 from blom_tpu_torch.core import eos
 from blom_tpu_torch.core.grid import finish_grid
 from blom_tpu_torch.drivers import standalone
-from blom_tpu_torch.dynamics import ale_vdiff, diffus, eddtra
+from blom_tpu_torch.dynamics import (ale_vdiff, convec, diapfl, diffus,
+                                     eddtra, mxlayr)
 from blom_tpu_torch.dynamics.cmnfld import CmnFields
 from blom_tpu_torch.dynamics.diffusion_fields import zero_diffusion_fields
 from blom_tpu_torch.phys.vmix import VmixFields
 from tests.oracles import ale_vdiff_oracle as vo
+from tests.oracles import convec_oracle as co
+from tests.oracles import diapfl_oracle as dpo
 from tests.oracles import diffus_oracle as do
 from tests.oracles import eddtra_oracle as eo
+from tests.oracles import mxlayr_oracle as mo
 
 
 @pytest.fixture(autouse=True)
@@ -186,3 +198,179 @@ def test_ale_vdifft_matches_oracle():
                                    rtol=1e-9, atol=1e-9)
         np.testing.assert_allclose(out.saln[n][:, j, i].numpy(), s_ref,
                                    rtol=1e-9, atol=1e-9)
+
+
+# ------------------------------------------------ the isopycnic phases
+
+def _eos_callbacks(e):
+    def f64(*xs):
+        return [torch.tensor(float(x), dtype=torch.float64) for x in xs]
+    return dict(
+        sig=lambda t, s: float(eos.sig(e, *f64(t, s))),
+        sofsig=lambda g, t: float(eos.sofsig(e, *f64(g, t))),
+        rho=lambda p, t, s: float(eos.rho(*f64(p, t, s))),
+        dsigdt=lambda t, s: float(eos.dsigdt(e, *f64(t, s))),
+        dsigds=lambda t, s: float(eos.dsigds(e, *f64(t, s))))
+
+
+def _columns(model, seed, unstable):
+    """The random isopycnic columns of test_convec_oracle.py
+    (`unstable`: mixed layer denser than the interior in about half the
+    columns, kfplo set around the first thick layer) or of
+    test_diapfl_oracle.py, with the same draws, at time level 1."""
+    rng = np.random.default_rng(seed)
+    g, e, s = model.grid, model.e, model.state
+    kk, H = g.kk, g.shape
+    ip = g.ip.numpy()
+    sigr = s.sigmar.numpy()
+    kidx = np.arange(kk)[:, None, None]
+    if unstable:
+        kfpl = rng.integers(2, kk - 2, H)
+        kmax = np.minimum(kk - 1, kfpl + rng.integers(1, kk - 1, H))
+        kfplo = np.clip(kfpl + rng.integers(-2, 5, H), 2, kk + 1)
+        ml, thick, lo = (25., 35.), 60., .1
+    else:
+        kfpl = rng.integers(3, kk - 3, H)
+        kmax = np.minimum(kk - 1, kfpl + rng.integers(1, kk - 2, H))
+        ml, thick, lo = (30., 40.), 80., .2
+    dp = np.zeros((kk,) + H)
+    dp[0] = ml[0] * 9806. * (1. + .2 * rng.random(H))
+    dp[1] = ml[1] * 9806. * (1. + .2 * rng.random(H))
+    interior = (kidx >= kfpl) & (kidx <= kmax)
+    dp = np.where(interior, thick * 9806. * (lo + rng.random((kk,) + H)),
+                  dp)
+    dp[2:] = np.where(interior[2:], dp[2:], 0.)
+    dp *= ip
+    if unstable:
+        temp = 14. - .5 * kidx + rng.normal(0., .8, (kk,) + H)
+        sig_target = sigr + rng.normal(0., .05, (kk,) + H)
+        uns = rng.random(H) < .5
+        sig_target[0] = np.where(uns, sigr[kk // 2], sigr[0])
+        sig_target[1] = np.where(uns, sigr[kk // 2] + .02, sigr[1])
+    else:
+        temp = 12. - .6 * kidx + rng.normal(0., .2, (kk,) + H)
+        sig_target = sigr + rng.normal(0., .02, (kk,) + H)
+    saln = eos.sofsig(e, _t(sig_target), _t(temp))
+    n = 1
+    s.dp[n], s.temp[n], s.saln[n] = _t(dp), _t(temp), saln
+    s.sigma[n] = eos.sig(e, _t(temp), saln)
+    if unstable:
+        s.kfpla[n] = torch.tensor(kfplo, dtype=torch.int32)
+        return s, n
+    s.kfpla[n] = torch.tensor(kfpl, dtype=torch.int32)
+    s.ustarb = _t(.01 * rng.random(H))
+    nu = _t(10 ** rng.uniform(-6., -3., (kk,) + H))
+    return s, nu, n
+
+
+def _wet_columns(g):
+    ip = g.ip.numpy() > 0
+    return [(j, i) for j in range(g.shape[0]) for i in range(g.shape[1])
+            if ip[j, i]]
+
+
+def test_convec_matches_oracle():
+    model = standalone.build_fuk95(itdm=18, jtdm=8, kdm=12, device='cpu')
+    s, n = _columns(model, 0, unstable=True)
+    inputs = {name: getattr(s, name)[n].numpy().copy()
+              for name in ('temp', 'saln', 'dp', 'sigma', 'kfpla')}
+    sigr = s.sigmar.numpy()
+    g = model.grid
+    out = convec.convec(g, model.e, s, 0, n)
+    cb = _eos_callbacks(model.e)
+    cols = _wet_columns(g)
+    assert len(cols) > 50
+    bad = []
+    for j, i in cols:
+        tt, ss, dpp, _, _, kfpl = co.column(
+            inputs['temp'][:, j, i], inputs['saln'][:, j, i],
+            inputs['dp'][:, j, i], inputs['sigma'][:, j, i],
+            sigr[:, j, i], int(inputs['kfpla'][j, i]), cb)
+        got_t = out.temp[n][:, j, i].numpy()
+        got_s = out.saln[n][:, j, i].numpy()
+        got_d = out.dp[n][:, j, i].numpy()
+        # compare where mass lives (diapfl fills massless T/S later)
+        wet = (dpp > 1e-9) | (got_d > 1e-9)
+        if not (np.allclose(got_d, dpp, rtol=1e-9, atol=1e-6)
+                and np.allclose(got_t[wet], tt[wet], rtol=1e-9, atol=1e-9)
+                and np.allclose(got_s[wet], ss[wet], rtol=1e-9, atol=1e-9)
+                and int(out.kfpla[n][j, i]) == min(kfpl, g.kk)):
+            bad.append((j, i))
+    assert not bad, f'{len(bad)}/{len(cols)} columns mismatch: {bad[:5]}'
+
+
+def test_diapfl_matches_oracle():
+    model = standalone.build_fuk95(itdm=18, jtdm=8, kdm=12, device='cpu')
+    s, nu, n = _columns(model, 0, unstable=False)
+    g = model.grid
+    inputs = {name: getattr(s, name)[n].numpy().copy()
+              for name in ('temp', 'saln', 'dp', 'sigma', 'kfpla')}
+    sigr, ust, cor = s.sigmar.numpy(), s.ustarb.numpy(), g.coriop.numpy()
+    delt1 = 2. * model.par.baclin
+    out = diapfl.diapfl(g, model.e, s, nu, 0, n, delt1)
+    cb = _eos_callbacks(model.e)
+    c = 9.806 ** 2 * delt1 / (1.e-3 ** 2)
+    cols = _wet_columns(g)
+    assert len(cols) > 50
+    bad = []
+    for j, i in cols:
+        tt, ss, dpp, _, _, _, _, _ = dpo.column(
+            inputs['temp'][:, j, i], inputs['saln'][:, j, i],
+            inputs['dp'][:, j, i], inputs['sigma'][:, j, i],
+            sigr[:, j, i], nu.numpy()[:, j, i], int(inputs['kfpla'][j, i]),
+            float(ust[j, i]), float(cor[j, i]), c, cb)
+        if not (np.allclose(out.temp[n][:, j, i].numpy(), tt, rtol=1e-6,
+                            atol=1e-6)
+                and np.allclose(out.saln[n][:, j, i].numpy(), ss,
+                                rtol=1e-6, atol=1e-6)
+                and np.allclose(out.dp[n][:, j, i].numpy(), dpp, rtol=1e-6,
+                                atol=1e-3 * 9806.)):
+            bad.append((j, i))
+    assert not bad, f'{len(bad)}/{len(cols)} columns mismatch: {bad[:5]}'
+
+
+def test_diapfl_conserves_and_keeps_uniform_velocity():
+    """Column mass, heat and salt within [kmin, kmax] and a uniform
+    velocity kept by the momentum mixing."""
+    model = standalone.build_fuk95(itdm=18, jtdm=8, kdm=12, device='cpu')
+    s, nu, n = _columns(model, 5, unstable=False)
+    g = model.grid
+    u0 = .13
+    s.u[n] = torch.full_like(s.u[n], u0) * g.iu
+    before = {name: getattr(s, name)[n].numpy().copy()
+              for name in ('dp', 'temp')}
+    wetu = s.dpu[n].numpy()[:, g.iu.numpy() > 0] > 0.
+    out = diapfl.diapfl(g, model.e, s, nu, 0, n, 2. * model.par.baclin)
+    ip = g.ip.numpy() > 0
+    np.testing.assert_allclose(out.dp[n].numpy().sum(0)[ip],
+                               before['dp'].sum(0)[ip], rtol=1e-11)
+    np.testing.assert_allclose(
+        (out.dp[n] * out.temp[n]).numpy().sum(0)[ip],
+        (before['dp'] * before['temp']).sum(0)[ip], rtol=1e-9, atol=1e-3)
+    du = out.u[n].numpy()[:, g.iu.numpy() > 0]
+    assert np.abs(du[wetu] - u0).max() < 1e-9
+
+
+def test_entrain_energy_matches_oracle():
+    """dpe through the truncated p_p_alpha series, within the 1e-5 the
+    reference accepts against the exact log form (test_mxlayr.py)."""
+    rng = np.random.default_rng(11)
+    for _ in range(200):
+        p_top = rng.uniform(0., 1e4)
+        prk = p_top + rng.uniform(1e4, 2e6)
+        pmxl = prk + rng.uniform(1e2, 5e5)
+        tk, sk = rng.uniform(-1., 25.), rng.uniform(30., 37.)
+        tm0, sm0 = rng.uniform(-1., 25.), rng.uniform(30., 37.)
+        uk, vk, um, vm = rng.normal(0., .3, 4)
+        dpe0, dke0 = rng.uniform(0., 1e-6, 2)
+        delt1, rm5 = 360., .8
+        args = (p_top, prk, pmxl, tk, sk, tm0, sm0, dpe0, dke0, uk, vk,
+                um, vm)
+        got = mxlayr.entrain_energy(*(torch.tensor(float(a),
+                                                   dtype=torch.float64)
+                                      for a in args), delt1, rm5)
+        want = mo.entrain_energy(*args, delt1, rm5)
+        for gv, w, name in zip(got, want, ('tmx', 'smx', 'dpe', 'dke')):
+            rtol = 1e-5 if name == 'dpe' else 1e-7
+            assert np.isclose(float(gv), w, rtol=rtol, atol=1e-12), \
+                (name, float(gv), w)
