@@ -1,9 +1,10 @@
 """Build the port's containers from dicts of numpy arrays.
 
 The dicts are keyed by the field names the JAX package uses (they match
-the port's), so a caller can carry a blom_tpu Grid, State, CppmCoeffs,
-Forcing, DiffusionFields, SwabsFields, CmnFields or VmixFields across
-with ``np.asarray`` on each field.
+the port's), so a caller can carry a blom_tpu Grid, State (its tracers
+included), CppmCoeffs, Forcing, BgcForcing, DiffusionFields,
+SwabsFields, CmnFields or VmixFields across with ``np.asarray`` on each
+field.
 Nothing here touches a JAX object."""
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bgc.step import BgcForcing
 from .core.grid import TENSOR_FIELDS, Grid
 from .core.state import State
 from .dynamics.cmnfld import CmnFields
@@ -56,6 +58,12 @@ def cppm_coeffs_from_numpy(d, dtype=torch.float64,
 
 def forcing_from_numpy(d, dtype=torch.float64, device='cpu') -> Forcing:
     return Forcing(**_fields(Forcing, d, dtype, device))
+
+
+def bgc_forcing_from_numpy(d, dtype=torch.float64,
+                           device='cpu') -> BgcForcing:
+    return BgcForcing(**{k: _t(d[k], dtype, device)
+                         for k in BgcForcing._fields})
 
 
 def diffusion_fields_from_numpy(d, dtype=torch.float64,

@@ -9,9 +9,12 @@ another device."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from ..bgc.params import NBGC, BgcParams
+from ..bgc.step import BgcForcing, init_bgc_tracers, zero_bgc_forcing
 from ..core import eos, init, modeltime
 from ..core.grid import Grid
 from ..core.state import State
@@ -37,6 +40,7 @@ class Model:
     forcing: Forcing
     dfl: DiffusionFields
     swabs: SwabsFields
+    bgc_forcing: Optional[BgcForcing] = None
 
 
 def _device(device):
@@ -51,7 +55,8 @@ def _device(device):
     return device
 
 
-def _assemble(grid, e, par, clock, state, forcing, dtype, device) -> Model:
+def _assemble(grid, e, par, clock, state, forcing, dtype, device,
+              bgc_forcing=None) -> Model:
     """The model around a configuration's grid, state and forcing: the
     CPPM coefficients of both sweep axes, zero diffusion fields and
     Jerlov type-3 shortwave absorption."""
@@ -67,14 +72,16 @@ def _assemble(grid, e, par, clock, state, forcing, dtype, device) -> Model:
     swabs = init_swabs(grid.shape, 'jerlov', 3, dtype, device)
     return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
                  coeffs_j=coeffs_j, clock=clock, state=state,
-                 forcing=forcing, dfl=dfl, swabs=swabs)
+                 forcing=forcing, dfl=dfl, swabs=swabs,
+                 bgc_forcing=bgc_forcing)
 
 
 def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
-                device=None, vcoord='cntiso_hybrid') -> Model:
+                device=None, vcoord='cntiso_hybrid', use_idlage=False,
+                use_bgc=False, use_ciso=False) -> Model:
     """Assemble the fuk95 experiment (tests/fuk95/limits deck values).
 
-    Matches blom_tpu's build_fuk95 (no extra tracers) field for field.
+    Matches blom_tpu's build_fuk95 field for field.
     With the default vertical coordinate: the ALE regrid/remap
     (`make_ale_params(kdm)`), the CVMix-lite vertical mixing
     (`VmixParams()`), the lateral diffusivity estimate (`DifestParams()`)
@@ -82,10 +89,19 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     ``par._replace(ale=None, vmix=None, difest=None)`` gives the
     adiabatic dynamical core.  With ``vcoord='isopyc_bulkml'``: the
     isopycnic initial state (a 5 m mixed layer over isopycnic layers,
-    many of them massless), ``vcoord_isopyc=True`` and no ALE.  `device`
-    defaults to CUDA and raises when CUDA is missing."""
+    many of them massless), ``vcoord_isopyc=True`` and no ALE.
+    `use_idlage` adds the ideal-age tracer (trc slot 0), `use_bgc` the
+    19 tracers of the base BGC chain after it, initialized as blom_tpu
+    initializes them, with uniform BGC surface forcing
+    (`model.bgc_forcing`); the carbon isotopes (`use_ciso`) are not
+    ported and raise.  `device` defaults to CUDA and raises when CUDA is
+    missing."""
     from ..configs import fuk95 as cfg
 
+    if use_ciso:
+        raise NotImplementedError(
+            'not ported to blom_tpu_torch: the BGC carbon isotopes '
+            '(ciso, use_ciso=True)')
     device = _device(device)
     itdm = itdm or cfg.ITDM
     jtdm = jtdm or cfg.JTDM
@@ -104,8 +120,11 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     # temperature from the analytic profile, in f64 on the host
     temp = eos.tofsig(e, torch.from_numpy(sigma),
                       torch.from_numpy(saln)).numpy()
+    niag = 1 if use_idlage else 0
+    itrbgc = niag if use_bgc else -1
+    ntr = niag + (NBGC if use_bgc else 0)
     state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
-                            sigmar=sigmar, dtype=dtype, ntr=0)
+                            sigmar=sigmar, dtype=dtype, ntr=ntr)
 
     par = StepParams(
         baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
@@ -113,20 +132,29 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                             mommth='enscon'),
         barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
         pgfmth='dynamic enthalpy', vcoord_isopyc=isopyc,
-        ale=None if isopyc else make_ale_params(kdm), itriag=-1, itrbgc=-1)
+        ale=None if isopyc else make_ale_params(kdm),
+        itriag=0 if use_idlage else -1, itrbgc=itrbgc,
+        bgc=BgcParams() if use_bgc else None)
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
-    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
+    bgc_forcing = None
+    if use_bgc:
+        state = init_bgc_tracers(state, itrbgc, e)
+        bgc_forcing = zero_bgc_forcing(grid.shape, dtype, device)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device,
+                     bgc_forcing)
 
 
 def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
-                  ztx0=-.05, baclin=300., batrop=10., device=None) -> Model:
+                  ztx0=-.05, baclin=300., batrop=10., device=None,
+                  use_idlage=False) -> Model:
     """Assemble the channel experiment (channel/mod_channel.F90), as
     blom_tpu's build_channel does: the 208x512x30 grid of
     `configs/channel.py` (read when called), the ALE regrid/remap, the
     vertical mixing and lateral diffusivity defaults, coastal
     wave-breaking damping, and a constant zonal wind stress `ztx0`
-    masked at u and v points.  `device` defaults to CUDA and raises when
-    CUDA is missing."""
+    masked at u and v points.  `use_idlage` adds the ideal-age tracer
+    (trc slot 0), as blom_tpu's build_gridfile does.  `device` defaults
+    to CUDA and raises when CUDA is missing."""
     from ..configs import channel as cfg
 
     device = _device(device)
@@ -143,7 +171,8 @@ def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     temp = eos.tofsig(e, torch.from_numpy(sigmar),
                       torch.from_numpy(saln)).numpy()
     state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
-                            sigmar=sigmar, dtype=dtype, ntr=0)
+                            sigmar=sigmar, dtype=dtype,
+                            ntr=1 if use_idlage else 0)
 
     par = StepParams(
         baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
@@ -151,7 +180,7 @@ def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                             mommth='enscon'),
         barotp=BarotpParams(cwbdts=5.e-5, cwbdls=25., mommth='enscon'),
         pgfmth='dynamic enthalpy', vcoord_isopyc=False,
-        ale=make_ale_params(kdm))
+        ale=make_ale_params(kdm), itriag=0 if use_idlage else -1)
 
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
     taux, tauy = cfg.wind_stress(grid.shape, ztx0)
@@ -181,9 +210,10 @@ def run(model: Model, nsteps: int):
     n_even = (nsteps // 2) * 2
     for i in range(0, n_even, 2):
         s, dfl = two_step(*args, s, model.forcing, dfl,
-                          delt1s[i], delt1s[i + 1], model.swabs)
+                          delt1s[i], delt1s[i + 1], model.swabs,
+                          model.bgc_forcing)
     if nsteps % 2:
         s, dfl = blom_step(*args, s, model.forcing, dfl, 0, 1, delt1s[-1],
-                           model.swabs)
+                           model.swabs, model.bgc_forcing)
     model.dfl = dfl
     return s, c

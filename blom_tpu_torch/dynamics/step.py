@@ -10,7 +10,9 @@ tracers and momentum, barotp, pbcor2 and tmsmt2.  The isopycnic
 (isopyc_bulkml) step: no regrid, the isopycnic GM (eddtra_isopyc) when
 egc > 0, the mixed-layer wind stress in momtum, then convec, the
 diapycnal mixing (diapfl) with the CVMix-lite diffusivity and the bulk
-mixed layer (mxlayr) in place of the implicit vertical diffusion.  Each
+mixed layer (mxlayr) in place of the implicit vertical diffusion.  On
+either coordinate the tracers' source terms follow the vertical physics:
+the ideal age (idlage_step) and the BGC chain (hamocc_step).  Each
 phase runs under blom_tpu's guard.  `check_supported` raises
 NotImplementedError naming every option the port does not run (see
 there).
@@ -26,12 +28,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..bgc.step import BgcForcing, hamocc_step
 from ..core import eos
 from ..core.grid import Grid
 from ..core.state import State
 from ..phys.forcing import Forcing
 from ..phys.swabs import SwabsFields
 from ..phys.vmix import VmixParams, difest_vertical, unported_vmix
+from ..tracers.idlage import idlage_step
 from .advect import advect
 from .ale import AleParams, ale_regrid_remap, unported_ale
 from .ale_vdiff import ale_vdifft, ale_vdiffm
@@ -76,6 +80,9 @@ class StepParams(NamedTuple):
     itrtke: int = -1
     itrgls: int = -1
     itrbgc: int = -1
+    bgc: object = None        # BgcParams when itrbgc >= 0
+    bgc_ti: object = None     # extended BGC tracer index (not ported)
+    bgc_cp: object = None     # carbon-isotope parameters (not ported)
     nday_in_year: float = 360.
     difest: Optional[DifestParams] = DifestParams()
     thermf: Optional[ThermfParams] = ThermfParams()
@@ -92,10 +99,11 @@ def check_supported(grid: Grid, par: StepParams):
     """Raise NotImplementedError, naming the option, for anything this
     port does not run: the direct regrid and reconstructions other than
     PPM, KPP and tidal mixing, neutral diffusion, other advection
-    schemes, the ideal-age, BGC and TKE/GLS tracers, surface restoring
-    and tripolar grids.  On the isopycnic path the message says so; that
-    path runs no regrid and diffuses along layers whatever ltedtp says,
-    as blom_tpu's step does."""
+    schemes, the BGC carbon isotopes (ciso) and extension tracers, the
+    TKE/GLS tracers, surface restoring and tripolar grids.  On the
+    isopycnic path the message says so; that path runs no regrid and
+    diffuses along layers whatever ltedtp says, as blom_tpu's step
+    does."""
     missing = []
     if par.ale is not None and not par.vcoord_isopyc:
         missing += unported_ale(par.ale)
@@ -106,10 +114,10 @@ def check_supported(grid: Grid, par: StepParams):
         missing.append("neutral diffusion (ltedtp='neutral')")
     if par.advmth != 'cppm':
         missing.append(f'advection advmth={par.advmth!r}')
-    if par.itriag >= 0:
-        missing.append('ideal-age tracer (par.itriag)')
-    if par.itrbgc >= 0:
-        missing.append('BGC tracers (par.itrbgc)')
+    if par.bgc_cp is not None:
+        missing.append('BGC carbon isotopes (ciso, par.bgc_cp)')
+    if par.bgc_ti is not None:
+        missing.append('extended BGC tracer index (par.bgc_ti)')
     if par.itrtke >= 0 or par.itrgls >= 0:
         missing.append('TKE/GLS closure (par.itrtke/itrgls)')
     if par.thermf is not None and (par.thermf.trxday > 0.
@@ -149,11 +157,13 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
               coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs,
               s: State, forcing: Forcing, dfl: DiffusionFields,
               m: int, n: int, delt1: float,
-              swabs: Optional[SwabsFields] = None):
+              swabs: Optional[SwabsFields] = None,
+              bgc_forcing: Optional[BgcForcing] = None):
     """Advance one baroclinic time step (mod_blom_step.F90:74-324) in
     place.  Returns (state, dfl): the diffusion and eddy-transport fields
     are per-step state (difest/eddtra fill them, advect and momtum read
-    them).  Vertical mixing runs when par.vmix and swabs are given."""
+    them).  Vertical mixing runs when par.vmix and swabs are given, the
+    BGC when par.itrbgc >= 0 and bgc_forcing is given."""
     check_supported(grid, par)
     dlt = par.dlt
     isopyc = par.vcoord_isopyc
@@ -226,6 +236,16 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         _mark('ale_vdiffm')
         s = ale_vdiffm(grid, s, vf, m, n, delt1)
 
+    # tracer sources and sinks (updtrc, mod_blom_step.F90:209-213), after
+    # the vertical physics
+    if par.itriag >= 0:
+        _mark('idlage')
+        s = idlage_step(s, par.itriag, n, delt1, par.nday_in_year)
+    if par.itrbgc >= 0 and bgc_forcing is not None:
+        _mark('hamocc')
+        s, _ = hamocc_step(grid, e, par.bgc, s, bgc_forcing, par.itrbgc,
+                           n, m, delt1)
+
     _mark('barotp')
     s = barotp(grid, s, utotn, vtotn, m, n, par.lstep, dlt, par.barotp)
     _mark('pbcor2')
@@ -239,10 +259,11 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
 def two_step(grid: Grid, e: eos.EosParams, par: StepParams,
              coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs, s: State,
              forcing: Forcing, dfl: DiffusionFields, d1: float, d2: float,
-             swabs: Optional[SwabsFields] = None):
+             swabs: Optional[SwabsFields] = None,
+             bgc_forcing: Optional[BgcForcing] = None):
     """Two steps covering both time-level parities: (m, n) = (0, 1) then
     (1, 0) — the body of blom_tpu's make_two_step scan."""
     s, dfl = blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                       0, 1, d1, swabs)
+                       0, 1, d1, swabs, bgc_forcing)
     return blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                     1, 0, d2, swabs)
+                     1, 0, d2, swabs, bgc_forcing)

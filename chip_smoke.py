@@ -16,7 +16,8 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    has a stack frame or spills;
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
-   two CPPM tracers; the ALE remap with ntr 0 and 5, and 37 for the main
+   two CPPM tracers, and the main variant also at NT_CHECK's 0, 1 and 3
+   on both axes; the ALE remap with ntr 0 and 5, and 37 for the main
    path's limiters: many chunks of fields, beyond any fixed cap on the
    tracers): the CPPM sweep in its four (compatibility, limiting)
    variants on both axes, the momentum core in its three schemes, ALE
@@ -54,7 +55,26 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    layers massless, counted), each kernel against its plain version in
    f32 (F32_REL) and on the same inputs in f64 (1e-12); isopyc_parity:
    one f64 step of each time-level parity at 24x8x10, card against CPU;
-7. decks: each limits deck of DECKS (written under build/decks/) built
+7. tracers: fuk95 with the ideal age and the BGC base chain (20
+   tracers) with bench.py's physics at 384x360x53 in f32, 10 timed steps
+   after 2: the slice's gates, the BGC's (oxygen and the hydrogen ion in
+   range over water, total phosphorus drifting by at most P_DRIFT_FACTOR
+   times blom_tpu's own f32 drift) and the age's, launches per step as
+   the main path's, host syncs no more than the main path's, s/step,
+   grid-points/s and the device time of each phase; tracers_kernels: the
+   CPPM sweep's inputs on both axes (nt 22) and ALE K2's (ntr 20) from
+   one step of the warmed-up run, each kernel against its plain version
+   in f32 and in f64, timed beside its plain version and its bound;
+   tracers_isopyc: the isopycnic fuk95 with the BGC (NOIIAOC) at
+   384x360x53 in f32, 2 timed steps after 1, the isopyc gates and the
+   BGC's; tracers_isopyc_kernels: the CPPM sweep on both axes (nt 21)
+   on the inputs of one step of that run (massless layers, counted),
+   checked and timed as tracers_kernels (no K2 call); on both tracer
+   paths every CPPM and K2 launch must carry the path's tracer count
+   (recorded in the run by observe_carried); tracers_parity: one f64
+   step of each time-level parity of the tracer step at 24x8x8, card
+   against CPU, the tracers one by one;
+8. decks: each limits deck of DECKS (written under build/decks/) built
    by the port's build_case, first as fuk95 at 384x360x53 in f32 for 4
    timed steps after a 1-step warm-up, then as the channel at its full
    208x512 width with 16 layers in f64 for one timed step after a
@@ -64,9 +84,10 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    every (kernel, instantiation) per step, seconds per step and
    grid-points/s; for the channel then one f64 step of each time-level
    parity at 24x32x10 on the card against the CPU (gated);
-8. the kernels summary line, then the device line last.  It fails if a
-   variant of a kernel launched on none of the paths (fuk95, the core,
-   the isopycnic path, the decks).
+9. the kernels summary line (with the tracer counts each kernel met)
+   and the script's total seconds, then the device line last.  It fails
+   if a variant of a kernel launched on none of the paths (fuk95, the
+   core, the isopycnic path, the tracer paths, the decks).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -83,6 +104,7 @@ import time
 
 SEED = 1234
 KK, JJ, II, NT = 53, 360, 384, 2
+NT_CHECK = (0, 1, 3)    # other tracer counts of the CPPM check (main variant)
 F32_REL = 1e-4          # f32 kernel tolerance, relative to max |ref|
 STEP_REL = 1e-5         # whole-step parity tolerance (see tests)
 # salinity over water stays within these of its uniform 35: the adiabatic
@@ -116,6 +138,23 @@ CHANNEL_DTYPE = 'float64'
 CHANNEL_SPEED = (1e-4, 2.)
 PARITY_CHANNEL = dict(ITDM=24, JTDM=32, KDM=10)
 NSTEPS_ISOPYC = 10      # timed steps of the isopycnic path
+# The tracer paths: fuk95 with the ideal age and the BGC base chain (20
+# tracers: the CPPM sweep carries 22 fields, ALE K2 remaps 20 tracers),
+# and the isopycnic fuk95 with the BGC (NOIIAOC, 19 tracers)
+NSTEPS_TRACERS = (2, 10)            # warm-up, timed steps
+NSTEPS_TRACERS_ISOPYC = (1, 2)
+OXYGEN_RANGE = (0., 5e-4)   # over water (tests/test_bgc.py:217-219)
+# the ideal age may go below 0 only by f32 rounding: after 10 steps the
+# oldest water is 1.16e-4 years, whose f32 ulp is 7.3e-12, so 1e-10 is
+# ~14 of its ulps (tests/test_tracers.py:27 allows 1e-14 in f64)
+AGE_FLOOR_F32 = -1e-10
+# total phosphorus may drift by f32 rounding of the transport; the gate is
+# P_DRIFT_FACTOR times what blom_tpu's own f32 run shows on the CPU at
+# 96x32x53 over the same steps (tracer_drift_reference.py), by path
+P_DRIFT_REF = {'tracers': -5.452903606428805e-08,
+               'tracers_isopyc': 6.964558196820292e-08}
+P_DRIFT_FACTOR = 10.
+PARITY_TRACERS = dict(itdm=24, jtdm=8, kdm=8)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 
@@ -247,6 +286,9 @@ def compare(outs, refs, dtype):
     import torch
     ok, worst_abs, worst_rel = True, 0.0, 0.0
     for o, r in zip(outs, refs):
+        if r.numel() == 0:           # no tracers
+            ok &= tuple(o.shape) == tuple(r.shape)
+            continue
         err = (o - r).abs()
         scale = float(r.abs().max())
         e = float(err.max())
@@ -265,7 +307,7 @@ def compare(outs, refs, dtype):
 _CPPM_COEFFS = {}
 
 
-def cppm_inputs(ax, periodic, dtype, dev):
+def cppm_inputs(ax, periodic, dtype, dev, nt=NT):
     import numpy as np
     import torch
     from blom_tpu_torch.dynamics.cppm import CppmCoeffs, init_cppm_coeffs
@@ -293,7 +335,7 @@ def cppm_inputs(ax, periodic, dtype, dev):
 
     def t(a):
         return torch.tensor(a, dtype=dtype, device=dev)
-    args = (t(h), t(rng.uniform(1., 4., (NT, KK, JJ, II))),
+    args = (t(h), t(rng.uniform(1., 4., (nt, KK, JJ, II))),
             t(rng.uniform(-.3, .3, (KK, JJ, II))),
             t(rng.uniform(5., 12., (JJ, II))), t(p[:-1]), t(p[1:]),
             t(1. / rng.uniform(.8, 1.2, (JJ, II))))
@@ -308,15 +350,16 @@ def cppm_inputs(ax, periodic, dtype, dev):
 TMC_ROWS = (0, 12, 9, 9, 6, 6, 6, 0, 0)
 
 
-def cppm_bytes(dtype, has_div, compat, lim, stencil):
+def cppm_bytes(dtype, has_div, compat, lim, stencil, nt=NT, n3_planes=0):
     """Bytes the sweep in variant (compat, lim) must move: each 3-D input
     and output once, and the planes it reads: db, ai, hevc (4), ssc, scc,
     d2m (non-oscillatory only) and, with full compatibility, the int32
-    stencil class and the tmc rows of each cell's class in `stencil`."""
+    stencil class and the tmc rows of each cell's class in `stencil`;
+    `n3_planes` of db and ai given as 3-D fields instead."""
     import torch
     es = torch.finfo(dtype).bits // 8
-    n3 = 4 + int(has_div) + NT + 2 + 2 * NT   # inputs + outputs, 3-D
-    n2 = 2 + 4 + 2 + int(lim == 'non_oscillatory')
+    n3 = 4 + int(has_div) + nt + 2 + 2 * nt + n3_planes   # in + out, 3-D
+    n2 = 2 - n3_planes + 4 + 2 + int(lim == 'non_oscillatory')
     nbytes = es * (n3 * KK * JJ * II + n2 * JJ * II)
     if compat == 'full':
         rows = torch.tensor(TMC_ROWS)[stencil.long().cpu()].sum()
@@ -328,7 +371,10 @@ def cppm_bytes(dtype, has_div, compat, lim, stencil):
 # (counted from csrc/cppm_sweep.cu): ~210 for the thickness part and the
 # compatible-edge LU solve, ~170 per tracer.  An upper count for every
 # variant; its time is below the bytes' time in each of them.
-CPPM_OPS_PER_CELL = 210 + 170 * NT
+def cppm_ops_per_cell(nt=NT):
+    return 210 + 170 * nt
+
+
 # per point of the momentum kernel, each intermediate once (counted from
 # csrc/momtum_uv.cu, a division or square root as one): ~62 for the total
 # velocities, weights and dpmx, ~78 for dl2u/dl2v, potvor, defor1/2 and
@@ -385,11 +431,33 @@ def check_cppm(dev, results):
                             b, by = bound(
                                 cppm_bytes(dtype, d is not None, compat, lim,
                                            co.stencil),
-                                CPPM_OPS_PER_CELL * KK * JJ * II)
+                                cppm_ops_per_cell() * KK * JJ * II)
                             rec['bound_ms'], rec['bound_by'] = b, by
                         emit('kernel_check', **rec)
                         results.append(rec)
                         ok_all &= ok
+    # the main variant at the other tracer counts of NT_CHECK, on both
+    # axes with the main path's periodicity, the second sweep's div_corr
+    for dtype in (torch.float64, torch.float32):
+        for ax in (-1, -2):
+            periodic = ax == -2
+            for nt in NT_CHECK:
+                co, args, div = cppm_inputs(ax, periodic, dtype, dev, nt)
+                ref = cppm._cppm_sweep_body(*args, co, periodic, div, ax)
+                out = cppm_cuda.cppm_sweep_cuda(*args, co, periodic,
+                                                div_corr=div, ax=ax)
+                torch.cuda.synchronize()
+                ok, eabs, erel = compare(out, ref, dtype)
+                ok &= all(tuple(o.shape) == tuple(r.shape)
+                          for o, r in zip(out, ref))
+                rec = dict(kernel='cppm_sweep',
+                           variant='full/non_oscillatory',
+                           dtype=str(dtype)[6:], ax=ax, periodic=periodic,
+                           div_corr=True, nt=nt, ok=ok, max_abs_err=eabs,
+                           max_rel_err=erel)
+                emit('kernel_check', **rec)
+                results.append(rec)
+                ok_all &= ok
     return ok_all
 
 
@@ -722,6 +790,8 @@ def check_ale_deep(dev, results):
                            dtype=str(dtype)[6:], kk=KK_DEEP,
                            shape=[JJ_DEEP, II_DEEP], ok=ok,
                            max_abs_err=eabs, max_rel_err=erel)
+                if name == 'ale_remap':
+                    rec['ntr'] = len(x['trc'])
                 emit('kernel_check', **rec)
                 results.append(rec)
                 ok_all &= ok
@@ -753,15 +823,45 @@ def _key(k):
     return k if isinstance(k, str) else '/'.join(k)
 
 
+# {kernel: {tracer count: launches}} since zero_counters, recorded by the
+# wrappers observe_carried installs
+_CARRIED = {'cppm_sweep': {}, 'ale_remap': {}}
+
+
+def observe_carried():
+    """Wrap the CPPM sweep's and ALE K2's wrappers so that each call that
+    returns from the card records the tracer count it carried: for the
+    CPPM sweep the fields after h (nt, the rows of tm), for K2 the
+    tracers besides T and S (ntr).  A wrapper given CUDA tensors launches
+    its kernel or raises, so these are launches."""
+    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda
+    for mod, fn, name, field, count in (
+            (cppm_cuda, 'cppm_sweep_cuda', 'cppm_sweep', 0,
+             lambda a: a[1].shape[0]),
+            (ale_cuda, 'remap_cuda', 'ale_remap', 1,
+             lambda a: len(a[2]) - 2)):
+        def wrapped(*a, _orig=getattr(mod, fn), _name=name, _field=field,
+                    _count=count, **kw):
+            out = _orig(*a, **kw)
+            if a[_field].is_cuda:
+                n = _count(a)
+                _CARRIED[_name][n] = _CARRIED[_name].get(n, 0) + 1
+            return out
+        setattr(mod, fn, wrapped)
+
+
 def counters():
     """The launch counts of every kernel wrapper, {kernel: {instantiation:
     n}} (CPPM 'compatibility/limiting', momentum scheme, K1 limiter, K2
-    'tracer/velocity' limiters), and the host syncs of the eddy-transport
-    limiter."""
+    'tracer/velocity' limiters), the host syncs of the eddy-transport
+    limiter, and under 'carried' the launches of the CPPM sweep and K2 by
+    the tracer count they carried, {kernel: {count: n}}."""
     from blom_tpu_torch.dynamics import eddtra
     out = {name: {_key(k): n for k, n in c.items()}
            for name, c in _counts().items()}
     out['host_syncs'] = eddtra.host_syncs
+    out['carried'] = {k: dict(sorted(v.items()))
+                      for k, v in _CARRIED.items()}
     return out
 
 
@@ -770,6 +870,8 @@ def zero_counters():
     for c in _counts().values():
         for k in c:
             c[k] = 0
+    for c in _CARRIED.values():
+        c.clear()
     eddtra.host_syncs = 0
 
 
@@ -791,13 +893,14 @@ def expected_launches(par):
 def launches_ok(counts, par, nsteps):
     exp = expected_launches(par)
     return all(n == exp[k].get(v, 0) * nsteps
-               for k, per in counts.items() if k != 'host_syncs'
+               for k, per in counts.items() if k in exp
                for v, n in per.items())
 
 
-def run_slice(dev, paths):
+def run_slice(dev, paths, syncs):
     """The fuk95 main path; its launch counts go to paths['fuk95'] and,
-    for the adiabatic core, paths['fuk95_core']."""
+    for the adiabatic core, paths['fuk95_core']; the eddy limiter's host
+    syncs per step of its 10-step run to syncs['fuk95']."""
     import torch
     from blom_tpu_torch.drivers import standalone
     from blom_tpu_torch.dynamics.difest import DifestParams
@@ -819,12 +922,13 @@ def run_slice(dev, paths):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = counters()
-        syncs = counts.pop('host_syncs')
+        syncs_n = counts.pop('host_syncs')
         paths.setdefault('fuk95', counts)
+        syncs.setdefault('fuk95', syncs_n / nsteps)
         ok, rec = slice_gates(model, s, nsteps, mass0)
         ok &= launches_ok(counts, model.par, nsteps)
         emit('slice', steps=nsteps, ok=ok, **rec, launches=counts,
-             host_syncs_per_step=syncs / nsteps,
+             host_syncs_per_step=syncs_n / nsteps,
              seconds_per_step=wall / nsteps,
              gridpoints_per_s=II * JJ * KK * nsteps / wall)
         ok_all &= ok
@@ -895,20 +999,26 @@ PARITY_FIELDS = ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx', 'vbflx',
                  'pgfx', 'pgfy', 'uflx', 'vflx')
 
 
-def worst_field(a, b):
+def worst_field(a, b, fields=PARITY_FIELDS):
     """(field, max |a - b| / max |a|) of the field that differs most; a on
     the CPU, b anywhere."""
     w = ('', 0.0)
-    for name in PARITY_FIELDS:
+    for name in fields:
         x = getattr(a, name)
         y = getattr(b, name).cpu()
-        r = float((x - y).abs().max() / x.abs().max().clamp_min(1e-300))
-        if r > w[1]:
-            w = (name, r)
+        # the tracers one by one: their scales differ by orders
+        pairs = ([(f'{name}[{i}]', x[:, i], y[:, i])
+                  for i in range(x.shape[1])] if name == 'trc'
+                 else [(name, x, y)])
+        for label, xi, yi in pairs:
+            r = float((xi - yi).abs().max()
+                      / xi.abs().max().clamp_min(1e-300))
+            if r > w[1]:
+                w = (label, r)
     return w
 
 
-def one_step_parity(models, dev):
+def one_step_parity(models, dev, fields=PARITY_FIELDS):
     """{parity: worst_field} of one step at each time-level parity from
     the same state, card against CPU; models = {device: Model}."""
     from blom_tpu_torch.dynamics import step
@@ -919,8 +1029,8 @@ def one_step_parity(models, dev):
             out[d], _ = step.blom_step(
                 mo.grid, mo.e, mo.par, mo.coeffs_i, mo.coeffs_j,
                 mo.state.clone(), mo.forcing, mo.dfl, m_, n_,
-                mo.clock.delt1, mo.swabs)
-        one_step[f'm{m_}n{n_}'] = worst_field(out['cpu'], out[dev])
+                mo.clock.delt1, mo.swabs, mo.bgc_forcing)
+        one_step[f'm{m_}n{n_}'] = worst_field(out['cpu'], out[dev], fields)
     return one_step
 
 
@@ -998,7 +1108,7 @@ def isopyc_gates(model, s, nsteps, mass0):
                     max_abs_v=float(s.v.abs().max()))
 
 
-def run_isopyc(dev, paths):
+def run_isopyc(dev, paths, syncs):
     """The isopycnic path at the main path's width in f32: 2 warm-up and
     NSTEPS_ISOPYC timed steps, launches per step, gates, s/step and
     grid-points/s, then the device time of each phase; then its kernels
@@ -1018,14 +1128,15 @@ def run_isopyc(dev, paths):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counters()
-    syncs = counts.pop('host_syncs')
+    syncs_n = counts.pop('host_syncs')
+    syncs['fuk95_isopyc'] = syncs_n / NSTEPS_ISOPYC
     paths['fuk95_isopyc'] = counts
     ok, rec = isopyc_gates(model, s, NSTEPS_ISOPYC, mass0)
     ok &= launches_ok(counts, model.par, NSTEPS_ISOPYC)
     emit('isopyc', shape=[KK, JJ, II], dtype='float32',
          build_seconds=build_s, warmup_steps=2, steps=NSTEPS_ISOPYC, ok=ok,
          **rec, launches=counts,
-         host_syncs_per_step=syncs / NSTEPS_ISOPYC,
+         host_syncs_per_step=syncs_n / NSTEPS_ISOPYC,
          seconds_per_step=wall / NSTEPS_ISOPYC,
          gridpoints_per_s=II * JJ * KK * NSTEPS_ISOPYC / wall)
     profile_phases(model, 2, 'isopyc_phase_profile')
@@ -1034,39 +1145,46 @@ def run_isopyc(dev, paths):
 
 
 def capture_kernel_inputs(model, s, delt1):
-    """The inputs of every CPPM sweep and momentum call of one step from
-    state `s` (parity m, n = 0, 1), cloned as each wrapper receives
-    them."""
+    """The inputs of every CPPM sweep, momentum and ALE K2 call of one
+    step from state `s` (parity m, n = 0, 1), cloned as each wrapper
+    receives them."""
     import dataclasses
-    from blom_tpu_torch.dynamics import cppm_cuda, momtum_cuda, step
+    from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, momtum_cuda
+    from blom_tpu_torch.dynamics import step
 
     def clone(x):
+        if isinstance(x, list):
+            return [clone(y) for y in x]
         return x.clone() if hasattr(x, 'clone') else x
 
-    calls = {'cppm_sweep': [], 'momtum_uv': []}
-    orig = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
-            'momtum_uv': momtum_cuda.momtum_uv_cuda}
+    calls = {'cppm_sweep': [], 'momtum_uv': [], 'ale_remap': []}
+    wrappers = {'cppm_sweep': (cppm_cuda, 'cppm_sweep_cuda'),
+                'momtum_uv': (momtum_cuda, 'momtum_uv_cuda'),
+                'ale_remap': (ale_cuda, 'remap_cuda')}
+    orig = {k: getattr(mod, fn) for k, (mod, fn) in wrappers.items()}
 
-    def cppm_cap(*a, **kw):
-        calls['cppm_sweep'].append(([clone(x) for x in a], dict(kw)))
-        return orig['cppm_sweep'](*a, **kw)
+    def capture(name):
+        def cap(*a, **kw):
+            if name == 'momtum_uv':
+                grid, par, f, d2, tsfac, d1 = a
+                args = [grid, par, type(f)(*map(clone, f)),
+                        type(d2)(*map(clone, d2)), tsfac, d1]
+            else:
+                args = [clone(x) for x in a]
+            calls[name].append((args, dict(kw)))
+            return orig[name](*a, **kw)
+        return cap
 
-    def momtum_cap(grid, par, f, d2, tsfac, d1):
-        calls['momtum_uv'].append(
-            ([grid, par, type(f)(*map(clone, f)), type(d2)(*map(clone, d2)),
-              tsfac, d1], {}))
-        return orig['momtum_uv'](grid, par, f, d2, tsfac, d1)
-
-    cppm_cuda.cppm_sweep_cuda = cppm_cap
-    momtum_cuda.momtum_uv_cuda = momtum_cap
+    for k, (mod, fn) in wrappers.items():
+        setattr(mod, fn, capture(k))
     try:
         step.blom_step(model.grid, model.e, model.par, model.coeffs_i,
                        model.coeffs_j, s.clone(), model.forcing,
                        dataclasses.replace(model.dfl), 0, 1, delt1,
-                       model.swabs)
+                       model.swabs, model.bgc_forcing)
     finally:
-        cppm_cuda.cppm_sweep_cuda = orig['cppm_sweep']
-        momtum_cuda.momtum_uv_cuda = orig['momtum_uv']
+        for k, (mod, fn) in wrappers.items():
+            setattr(mod, fn, orig[k])
     return calls
 
 
@@ -1084,6 +1202,8 @@ def _to_f64(x):
             if isinstance(getattr(x, f.name), torch.Tensor)})
     if isinstance(x, tuple) and hasattr(x, '_fields'):
         return type(x)(*map(_to_f64, x))
+    if isinstance(x, list):
+        return [_to_f64(y) for y in x]
     return x
 
 
@@ -1143,6 +1263,241 @@ def run_isopyc_parity(dev):
     one_step = one_step_parity(models, dev)
     ok = all(r <= STEP_REL for _, r in one_step.values())
     emit('isopyc_parity', ok=ok, tolerance=STEP_REL, size=PARITY_ISOPYC,
+         one_step=one_step)
+    return ok
+
+
+# --------------------------------------------------------------- tracers
+
+def build_tracers(dev, dtype, isopyc=False, **size):
+    """fuk95 with bench.py's physics and the tracers: the ideal age and
+    the BGC base chain (NOINYAGE with NOINYOC), or in the isopycnic
+    coordinate the BGC alone (NOIIAOC)."""
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    tracers = (dict(vcoord=ISOPYC, use_bgc=True) if isopyc
+               else dict(use_idlage=True, use_bgc=True))
+    model = standalone.build_fuk95(dtype=dtype, device=dev, **tracers,
+                                   **size)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
+    return model
+
+
+def p_inventory(model, s, lev):
+    """Total phosphorus (phosphate, phytoplankton, zooplankton, DOC and
+    detritus) times the layer mass, summed in f64, as
+    tracer_drift_reference.py sums blom_tpu's."""
+    from blom_tpu_torch.bgc.params import BgcTracers as T
+    t = s.trc[lev, model.par.itrbgc:].double()
+    tot = t[T.phosph] + t[T.phy] + t[T.zoo] + t[T.doc] + t[T.det]
+    return float((tot * s.dp[lev].double()).sum())
+
+
+def bgc_gates(model, s, nsteps, p0, key):
+    """Finite tracers; over water (the layers the BGC step treats as
+    wet) oxygen within OXYGEN_RANGE and the hydrogen ion within the pH
+    solver's clip [ah_min, ah_max]; total phosphorus drifting by no more
+    than P_DRIFT_FACTOR times blom_tpu's own f32 drift (P_DRIFT_REF)."""
+    import torch
+    from blom_tpu_torch.bgc.params import BgcTracers as T
+    from blom_tpu_torch.core.constants import onem
+    new = 1 if nsteps % 2 == 0 else 0
+    par, b = model.par.bgc, model.par.itrbgc
+    trc = s.trc[new]
+    wet = (s.dp[new] > par.dp_min * onem) & (model.grid.ip > .5)[None]
+    oxy, hi = trc[b + T.oxygen][wet], trc[b + T.hi][wet]
+    lo, up = (torch.tensor(v, dtype=trc.dtype)
+              for v in (par.ah_min, par.ah_max))
+    drift = p_inventory(model, s, new) / p0 - 1.
+    limit = P_DRIFT_FACTOR * abs(P_DRIFT_REF[key])
+    rec = dict(finite_trc=bool(torch.isfinite(trc).all()),
+               oxygen=[float(oxy.min()), float(oxy.max())],
+               hi=[float(hi.min()), float(hi.max())],
+               rel_p_drift=drift, p_drift_limit=limit,
+               p_drift_blom_tpu_f32=P_DRIFT_REF[key])
+    ok = (rec['finite_trc']
+          and OXYGEN_RANGE[0] < rec['oxygen'][0]
+          and rec['oxygen'][1] < OXYGEN_RANGE[1]
+          and float(lo) <= rec['hi'][0] and rec['hi'][1] <= float(up)
+          and abs(drift) <= limit)
+    return ok, rec
+
+
+def age_gates(model, s, nsteps):
+    """tests/test_tracers.py:14-27 after `nsteps` steps from rest: the
+    age zero at the surface, no older than the steps allow below, the
+    bottom water aged, and not below AGE_FLOOR_F32."""
+    new = 1 if nsteps % 2 == 0 else 0
+    ip = model.grid.ip > 0
+    age = s.trc[new, model.par.itriag].double()
+    expected = nsteps * 2 * 180. / (86400. * 360.)
+    rec = dict(age_surface_max=float(age[0][ip].max()),
+               age_k3_max=float(age[3][ip].max()),
+               age_bottom_mean=float(age[-1][ip].mean()),
+               age_min=float(age.min()), age_expected=expected)
+    ok = (rec['age_surface_max'] < 1e-4
+          and rec['age_k3_max'] <= expected * 1.05
+          and rec['age_bottom_mean'] > .2 * expected
+          and rec['age_min'] >= AGE_FLOOR_F32)
+    return ok, rec
+
+
+def run_tracers(dev, paths, syncs, results, isopyc=False):
+    """The tracer path at the main path's width in f32 (fuk95 with the
+    age and the BGC, or with isopyc the isopycnic fuk95 with the BGC):
+    warm-up and timed steps from rest, the gates of its coordinate and
+    the BGC's, launches and host syncs per step, the tracer count each
+    CPPM and K2 launch carried, s/step and grid-points/s, then the device
+    time of each phase, then its kernels on their inputs
+    (check_tracer_kernels, records to `results`).  On the ALE path the
+    eddy limiter's host syncs per step must not exceed the plain fuk95
+    path's over the same steps (the tracers do not feed back on the
+    dynamics); the isopycnic run's are reported beside the plain
+    isopycnic path's, over other steps."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    phase = 'tracers_isopyc' if isopyc else 'tracers'
+    warm, nsteps = NSTEPS_TRACERS_ISOPYC if isopyc else NSTEPS_TRACERS
+    t0 = time.perf_counter()
+    model = build_tracers(dev, torch.float32, isopyc, itdm=II, jtdm=JJ,
+                          kdm=KK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mass0 = mass(model, model.state.dp[1])
+    p0 = p_inventory(model, model.state, 1)
+    s_warm, clock = standalone.run(model, warm)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    nsync = counts.pop('host_syncs')
+    paths[f'fuk95_{phase}'] = counts
+    if isopyc:
+        ok, rec = isopyc_gates(model, s, nsteps, mass0)
+    else:
+        ok, rec = slice_gates(model, s, nsteps, mass0)
+        ok_a, rec_a = age_gates(model, s, nsteps)
+        ok &= ok_a
+        rec.update(rec_a)
+    ok_b, rec_b = bgc_gates(model, s, nsteps, p0, phase)
+    ok &= ok_b and launches_ok(counts, model.par, nsteps)
+    # every CPPM sweep carried T, S and the tracers, every K2 launch the
+    # tracers
+    ntr = model.state.trc.shape[1]
+    ok &= counts['carried'] == {
+        'cppm_sweep': {2 + ntr: 2 * nsteps},
+        'ale_remap': {ntr: nsteps} if model.par.ale is not None else {}}
+    # BGC adds no host read: no more syncs than the plain path's
+    plain = syncs['fuk95_isopyc' if isopyc else 'fuk95']
+    if not isopyc:
+        ok &= nsync / nsteps <= plain
+    emit(phase, shape=[KK, JJ, II], dtype='float32',
+         ntr=ntr, build_seconds=build_s,
+         warmup_steps=warm, steps=nsteps, ok=ok, **rec, **rec_b,
+         launches=counts, host_syncs_per_step=nsync / nsteps,
+         plain_host_syncs_per_step=plain,
+         seconds_per_step=wall / nsteps,
+         gridpoints_per_s=II * JJ * KK * nsteps / wall)
+    profile_phases(model, 1 if isopyc else 2, f'{phase}_phase_profile')
+    ok &= check_tracer_kernels(model, s_warm, clock.delt1, results, phase)
+    return ok
+
+
+def check_tracer_kernels(model, s, delt1, results, phase):
+    """The CPPM sweep on both axes (nt = 2 + ntr) and, with ALE on, ALE
+    K2 (ntr tracers) on the inputs one tracer step from state `s` gives
+    them, each against its plain version in f32 (F32_REL) and on the same
+    inputs cast to f64 (1e-12); their times at these counts beside the
+    plain versions' and the bounds, each record appended to `results`.
+    The CPPM records count the massless wet cells of h; on the isopycnic
+    path (no ALE: no K2 call) there must be some, as in
+    check_isopyc_kernels."""
+    import torch
+    from blom_tpu_torch.dynamics import ale, ale_cuda, cppm, cppm_cuda
+    calls = capture_kernel_inputs(model, s, delt1)
+    isopyc = model.par.ale is None
+    wet = model.grid.ip > 0
+    kernel = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
+              'ale_remap': ale_cuda.remap_cuda}
+
+    def plain(name, a, kw):
+        if name == 'ale_remap':
+            return ale.remap_plain(*a)
+        return cppm._cppm_sweep_body(
+            *a, kw.get('div_corr'), kw['ax'], kw['compatibility'],
+            kw['limiting'])
+
+    def flat(name, out):
+        return (list(out[0]) + [out[1], out[2]] if name == 'ale_remap'
+                else list(out))
+
+    ok_all = (len(calls['cppm_sweep']) == 2
+              and len(calls['ale_remap']) == (0 if isopyc else 1))
+    for name in ('cppm_sweep', 'ale_remap'):
+        for a, kw in calls[name]:
+            if name == 'cppm_sweep':
+                rec = dict(kernel=name, path=phase, ax=kw['ax'],
+                           nt=a[1].shape[0],
+                           variant=f"{kw['compatibility']}/"
+                                   f"{kw['limiting']}",
+                           div_corr=kw.get('div_corr') is not None,
+                           n_cells_dp_zero=int(((a[0] == 0) & wet).sum()),
+                           wet_cells=int(wet.sum()) * a[0].shape[0])
+                dtype = a[0].dtype
+                if isopyc:
+                    ok_all &= rec['n_cells_dp_zero'] > 0
+            else:
+                rec = dict(kernel=name, path=phase, ntr=len(a[2]) - 2,
+                           variant=f'{a[0].tracer_limiting}/'
+                                   f'{a[0].velocity_limiting}')
+                dtype = a[1].dtype
+            ok = True
+            for tag, args, kwt in (
+                    ('f32', a, kw),
+                    ('f64', [_to_f64(x) for x in a],
+                     {k: _to_f64(v) for k, v in kw.items()})):
+                out = kernel[name](*args, **kwt)
+                ref = plain(name, args, kwt)
+                torch.cuda.synchronize()
+                o, e_abs, e_rel = compare(
+                    flat(name, out), flat(name, ref),
+                    torch.float64 if tag == 'f64' else dtype)
+                rec[f'{tag}_ok'], rec[f'{tag}_max_abs_err'] = o, e_abs
+                rec[f'{tag}_max_rel_err'] = e_rel
+                ok &= o
+            rec['ok'] = ok
+            rec['ms'] = time_ms(lambda: kernel[name](*a, **kw))
+            rec['plain_ms'] = time_ms(lambda: plain(name, a, kw), reps=5,
+                                      warm=1)
+            if name == 'cppm_sweep':
+                nbytes = cppm_bytes(
+                    dtype, rec['div_corr'], kw['compatibility'],
+                    kw['limiting'], a[7].stencil, rec['nt'],
+                    n3_planes=int(a[3].dim() == 3) + int(a[6].dim() == 3))
+                nops = cppm_ops_per_cell(rec['nt']) * KK * JJ * II
+            else:
+                nbytes = ale_bytes(dtype, 'remap', rec['ntr'])
+                nops = ale_remap_ops(rec['ntr']) * JJ * II
+            rec['bound_ms'], rec['bound_by'] = bound(nbytes, nops)
+            emit(f'{phase}_kernels', **rec)
+            results.append(rec)
+            ok_all &= ok
+    return ok_all
+
+
+def run_tracers_parity(dev):
+    """One f64 step of each time-level parity of the tracer step at
+    PARITY_TRACERS size, card against CPU, within STEP_REL, the tracers
+    one by one among the fields."""
+    import torch
+    models = {d: build_tracers(d, torch.float64, **PARITY_TRACERS)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev, PARITY_FIELDS + ('trc',))
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('tracers_parity', ok=ok, tolerance=STEP_REL, size=PARITY_TRACERS,
          one_step=one_step)
     return ok
 
@@ -1248,14 +1603,19 @@ def run_deck(dev, name, expcnf, paths):
     return ok and pok
 
 
-def kernel_summary(results, paths):
+def kernel_summary(results, paths, tracer_results):
     """The kernels line: one entry per kernel, with its variants.  A
     kernel's `launches` is the sum of its wrapper's counts on every path.
     A variant's `launches` are per path.  K2's variants are its three
     limiters: a K2 launch counts once for each limiter it runs, on the
     tracers or on the velocities, so its variants' launches can add up to
     more than the kernel's; `instantiations` gives them per (tracer,
-    velocity) pair."""
+    velocity) pair.  `tracer_counts` names the tracer counts the kernel
+    met (CPPM: fields after h, nt; K2: tracers besides T and S, ntr):
+    those checked against its plain version, each path's launches by the
+    count they carried in its run ({count: launches}, observe_carried),
+    and the tracer paths' own inputs with their times
+    (tracer_results)."""
     from blom_tpu_torch.dynamics.ale import LIMITERS
     from blom_tpu_torch.dynamics.momtum import MOMMTHS
     out = []
@@ -1303,6 +1663,18 @@ def kernel_summary(results, paths):
             'ms': main['ms'], 'plain_ms': main['plain_ms'],
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
             'library_ms': None, 'variants': variants}
+        if name in TRACER_COUNT_KEYS:
+            key = TRACER_COUNT_KEYS[name]
+            trecs = [r for r in tracer_results if r['kernel'] == name]
+            entry['tracer_counts'] = {
+                key: sorted({r.get(key, NT) for r in recs}
+                            | {r[key] for r in trecs}),
+                'paths': {p: c['carried'][name] for p, c in paths.items()
+                          if c['carried'][name]},
+                'tracer_paths': [{k: r[k] for k in (
+                    'path', key, 'ax', 'variant', 'n_cells_dp_zero', 'ok',
+                    'f32_max_abs_err', 'f64_max_abs_err', 'ms', 'plain_ms',
+                    'bound_ms', 'bound_by') if k in r} for r in trecs]}
         if name in ALE_KERNELS:
             entry['dynamic_smem'] = ale_smem(name)
         if name == 'ale_remap':
@@ -1314,9 +1686,15 @@ def kernel_summary(results, paths):
     return out
 
 
+# {kernel: the record key of its tracer count}: the CPPM sweep carries T,
+# S and the tracers (nt), K2 remaps the tracers besides T and S (ntr)
+TRACER_COUNT_KEYS = {'cppm_sweep': 'nt', 'ale_remap': 'ntr'}
+
+
 # ------------------------------------------------------------------- main
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1347,22 +1725,27 @@ def main():
                        'momtum_uv': momentum_smem(),
                        **{k: ale_smem(k) for k in ALE_KERNELS}})
 
-    results = []
+    results, tracer_results = [], []
     ok = all(frames.values())
     ok &= check_cppm(dev, results)
     ok &= check_momtum(dev, results)
     ok &= check_ale(dev, results)
-    paths = {}
-    ok &= run_slice(dev, paths)
+    paths, syncs = {}, {}
+    observe_carried()
+    ok &= run_slice(dev, paths, syncs)
     ok &= run_parity(dev)
-    ok &= run_isopyc(dev, paths)
+    ok &= run_isopyc(dev, paths, syncs)
     ok &= run_isopyc_parity(dev)
+    ok &= run_tracers(dev, paths, syncs, tracer_results)
+    ok &= run_tracers(dev, paths, syncs, tracer_results, isopyc=True)
+    ok &= run_tracers_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)
 
-    kernels = kernel_summary(results, paths)
+    kernels = kernel_summary(results, paths, tracer_results)
     print(json.dumps({'kernels': kernels}), flush=True)
+    emit('total', seconds=time.perf_counter() - t_start)
     unlaunched = [f"{k['name']}:{v['name']}" for k in kernels
                   for v in k['variants'] if not any(v['launches'].values())]
     if unlaunched:

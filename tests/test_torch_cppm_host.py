@@ -8,7 +8,8 @@ Its hn, tm_new, hf and htf are held against the plain version
 cppm._cppm_sweep_body in f64 at |err| <= 1e-12 (1 + |ref|), in all
 four (compatibility, limiting) variants, on both axes, closed and
 periodic, with and without the transverse divergence correction, at
-nt = 2, on a small ragged grid (the j-sweep's last block of lines ends
+nt = 2, and in every variant on both axes at nt = 0, 1 and 3 (the tracer
+loop run no time, once and past its second pass), on a small ragged grid (the j-sweep's last block of lines ends
 inside the grid) whose land gives every stencil class.  One f32 case
 runs within 1e-4 of max |ref|, chip_smoke's f32 tolerance; one case of
 each axis runs each block as the launch's threads, host threads meeting
@@ -42,7 +43,7 @@ def lib(tmp_path_factory):
     return _host_build(tmp_path_factory, 'cppm_sweep', 3)
 
 
-def _inputs(ax, periodic, dtype, shape=(KK, J, I), seed=4):
+def _inputs(ax, periodic, dtype, shape=(KK, J, I), seed=4, nt=NT):
     """chip_smoke.cppm_inputs at a small size: land on 30 % of the
     cells, walls at the ends of a closed sweep axis."""
     KK, J, I = shape
@@ -63,7 +64,7 @@ def _inputs(ax, periodic, dtype, shape=(KK, J, I), seed=4):
 
     def t(a):
         return torch.tensor(a, dtype=dtype)
-    args = (t(h), t(rng.uniform(1., 4., (NT, KK, J, I))),
+    args = (t(h), t(rng.uniform(1., 4., (nt, KK, J, I))),
             t(rng.uniform(-.3, .3, (KK, J, I))),
             t(rng.uniform(5., 12., (J, I))), t(p[:-1]), t(p[1:]),
             t(1. / rng.uniform(.8, 1.2, (J, I))))
@@ -92,8 +93,8 @@ def _run(lib, args, co, periodic, div, ax, compat, lim):
 
 
 def _check(lib, ax, periodic, with_div, compat, lim, dtype=torch.float64,
-           threads=1, shape=(KK, J, I)):
-    co, args, div = _inputs(ax, periodic, dtype, shape)
+           threads=1, shape=(KK, J, I), nt=NT):
+    co, args, div = _inputs(ax, periodic, dtype, shape, nt=nt)
     d = div if with_div else None
     lib.shim_set_block_threads(threads)
     try:
@@ -104,6 +105,7 @@ def _check(lib, ax, periodic, with_div, compat, lim, dtype=torch.float64,
                                 compatibility=compat, limiting=lim)
     for o, r, name in zip(out, ref, ('hn', 'tm_new', 'hf', 'htf')):
         o, r = o.double().numpy(), r.double().numpy()
+        assert o.shape == r.shape, name
         assert np.isfinite(r).all(), name
         err = np.abs(o - r)
         if dtype == torch.float64:
@@ -128,6 +130,16 @@ def test_host_sweep_matches_plain(lib, ax, periodic, with_div, compat,
                                   lim):
     """Every variant, axis, periodicity and div_corr case in f64."""
     _check(lib, ax, periodic, with_div, compat, lim)
+
+
+@pytest.mark.parametrize('compat,lim', VARIANTS)
+@pytest.mark.parametrize('ax', [-1, -2])
+@pytest.mark.parametrize('nt', [0, 1, 3])
+def test_host_sweep_tracer_counts(lib, nt, ax, compat, lim):
+    """Every variant on both axes (each with the main path's
+    periodicity: closed in i, periodic in j) with the divergence
+    correction, at the other tracer counts."""
+    _check(lib, ax, ax == -2, True, compat, lim, nt=nt)
 
 
 def test_host_sweep_f32(lib):
