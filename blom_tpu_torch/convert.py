@@ -40,9 +40,7 @@ def _fields(cls, d, dtype, device):
 def grid_from_numpy(d, *, periodic_i: bool, periodic_j: bool, kk: int,
                     arctic: bool = False, dtype=torch.float64,
                     device='cpu') -> Grid:
-    if arctic:
-        raise NotImplementedError('tripolar (arctic) grids are not ported')
-    return Grid(periodic_i=periodic_i, periodic_j=periodic_j, arctic=False,
+    return Grid(periodic_i=periodic_i, periodic_j=periodic_j, arctic=arctic,
                 kk=kk, **{k: _t(d[k], dtype, device) for k in TENSOR_FIELDS})
 
 

@@ -4,7 +4,8 @@ Counterpart of `blom_tpu/core/grid.py` (BLOM's mod_grid.F90,
 mod_bigrid.F90:43-431 masks, mod_blom_init.F90:446-555 bounds).  Land is
 a dense 0/1 mask per point class (p, u, v, q) that multiplies results;
 the periodicity of each axis is static metadata that selects roll or
-zero-fill shifts.  Tripolar (arctic) grids are not ported."""
+zero-fill shifts, and on a tripolar (arctic) grid a tagged j+1 read at
+the top row takes the fold's ghost."""
 
 from __future__ import annotations
 
@@ -86,10 +87,15 @@ class Grid:
     def dtype(self):
         return self.depths.dtype
 
-    # ---- neighbour shifts respecting this grid's topology.  `kind` and
-    # `vector` name the field's point class for fold-aware reads on
-    # tripolar grids; on the non-arctic grids ported here they change
-    # nothing and are accepted so call sites read like blom_tpu's.
+    # ---- neighbour shifts respecting this grid's topology.
+    #
+    # On tripolar grids (arctic=True) a j+1 read at the top row crosses
+    # the bipolar fold: the ghost is the i-mirrored (sign-flipped for
+    # vector components) value from below the fold, with per-grid-kind
+    # staggering (xctilr halo_ps..halo_vv, mod_xc.F90:2405-2700).
+    # Callers crossing the fold tag the field's grid kind
+    # ('p'|'u'|'v'|'q') and vector-ness; untagged calls keep the closed
+    # (zero-ghost) behaviour, which is correct only off the fold row.
 
     def im1(self, a):
         return stencil.im1(a, self.periodic_i)
@@ -101,7 +107,27 @@ class Grid:
         return stencil.jm1(a, self.periodic_j)
 
     def jp1(self, a, kind: str = None, vector: bool = False):
+        if self.arctic and kind is not None:
+            from ..parallel.arctic import jp1_arctic
+            return jp1_arctic(a, kind, vector)
         return stencil.jp1(a, self.periodic_j)
+
+    def jpn(self, a, m: int, kind: str = None, vector: bool = False):
+        """Neighbour at j+m (m >= 1), fold-aware when tagged."""
+        if self.arctic and kind is not None:
+            from ..parallel.arctic import fold_extend
+            return fold_extend(a, kind, vector, m)[..., m:, :]
+        return stencil.shift(a, 0, m, self.periodic_i, self.periodic_j)
+
+    def shift(self, a, di=0, dj=0, kind: str = None,
+              vector: bool = False):
+        if dj > 0 and self.arctic and kind is not None:
+            out = self.jpn(a, dj, kind, vector)
+            if di:
+                out = stencil.shift(out, di, 0, self.periodic_i,
+                                    self.periodic_j)
+            return out
+        return stencil.shift(a, di, dj, self.periodic_i, self.periodic_j)
 
 
 def build_masks(depths: np.ndarray, periodic_i: bool, periodic_j: bool):
@@ -142,8 +168,6 @@ def finish_grid(*, scpx, scpy, scux, scuy, scvx, scvy, scqx, scqy,
     numerical bounds (numerical_bounds, mod_blom_init.F90:446-555):
     difmx* = 0.45*dx2*dy2/((dx2+dy2)*2*dt), umax/vmax = 0.9/8 * min
     neighbour cell area/(edge length * dt)."""
-    if arctic:
-        raise NotImplementedError('tripolar (arctic) grids are not ported')
     depths = np.asarray(depths, dtype=np.float64)
     ip, iu, iv, iq = build_masks(depths, periodic_i, periodic_j)
 
@@ -180,7 +204,7 @@ def finish_grid(*, scpx, scpy, scux, scuy, scvx, scvy, scqx, scqy,
         corioq=corioq, coriop=coriop, betafp=betafp,
         ip=ip, iu=iu, iv=iv, iq=iq,
         difmxp=difmxp, difmxq=difmxq, umax=umax, vmax=vmax)
-    return Grid(periodic_i=periodic_i, periodic_j=periodic_j, arctic=False,
+    return Grid(periodic_i=periodic_i, periodic_j=periodic_j, arctic=arctic,
                 kk=kk, **{k: torch.tensor(np.asarray(v, np.float64),
                                           dtype=dtype, device=device)
                           for k, v in vals.items()})

@@ -6,7 +6,8 @@
 // stream>>>(args);` into `shim_launch(kern, blocks, threads, smem,
 // args);` and every `extern __shared__ ... name[];` into
 // `unsigned char *name = shim_shared();` (tests/test_torch_ale_host.py
-// does both with regular expressions), then build with
+// does both with regular expressions; a file-scope declaration then
+// points at the shim's one fixed buffer), then build with
 // `g++ -std=c++17 -O1 -ffp-contract=off -shared -fPIC -pthread`.
 //
 // A launch runs its blocks one after another (a grid of up to three
@@ -20,9 +21,12 @@
 // mapping of points to threads, which one thread per block cannot, and
 // runs a kernel without barriers that needs its own thread count.  Dynamic shared memory is filled with 0xFF bytes
 // (NaN in float and double) before each block, so that a read of a
-// point no stage wrote shows in the result.
+// point no stage wrote shows in the result.  A launch that asks for more
+// than the H100's 232,448 B of it runs no block and makes
+// cudaGetLastError return an error, as the device's launch would.
 //
-// Device pointers are host pointers here.
+// `__ldg` is a plain read and `min` the integer minimum.  Device pointers
+// are host pointers here.
 
 #pragma once
 
@@ -58,7 +62,11 @@ struct dim3 {
 static thread_local dim3 threadIdx;
 static dim3 blockIdx, blockDim, gridDim;
 static int shim_block_threads = 1;
-static std::vector<unsigned char> shim_smem;
+// opt-in shared memory per block of an H100
+static const int kShimSharedOptin = 232448;
+// the dynamic shared memory, one fixed buffer, so that a pointer to it
+// taken when the library loads (a file-scope `extern __shared__`) holds
+static std::vector<unsigned char> shim_smem(kShimSharedOptin);
 
 // 1: one thread per block; -1: the launch's threads, as host threads
 extern "C" void shim_set_block_threads(int n) { shim_block_threads = n; }
@@ -82,9 +90,6 @@ struct ShimBarrier {
   }
 };
 static ShimBarrier shim_barrier;
-
-// opt-in shared memory per block of an H100
-static const int kShimSharedOptin = 232448;
 
 inline void __syncthreads() {
   if (shim_block_threads < 0) shim_barrier.wait();
@@ -110,7 +115,21 @@ inline int atomicMin(int *a, int v) {
   return old;
 }
 
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// the read-only data cache's load, and the integer minimum of device code
+template <typename T>
+inline T __ldg(const T *p) { return *p; }
+
+inline int min(int a, int b) { return b < a ? b : a; }
+
+// a launch the device would refuse records its error here, and
+// cudaGetLastError returns it and clears it, as the runtime does
+inline cudaError_t shim_last_error = cudaSuccess;
+
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = shim_last_error;
+  shim_last_error = cudaSuccess;
+  return err;
+}
 
 inline cudaError_t cudaGetDevice(int *dev) {
   *dev = 0;
@@ -137,12 +156,15 @@ void shim_launch(F kern, dim3 grid, int threads, size_t smem,
   gridDim = grid;
   blockDim.x = nth;
   shim_barrier.n = nth;
-  shim_smem.assign(smem > 0 ? smem : 1, 0xFF);
+  if (smem > shim_smem.size()) {
+    shim_last_error = cudaErrorInvalidValue;
+    return;
+  }
   for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
     blockIdx.x = b % grid.x;
     blockIdx.y = b / grid.x % grid.y;
     blockIdx.z = b / grid.x / grid.y;
-    memset(shim_smem.data(), 0xFF, shim_smem.size());
+    memset(shim_smem.data(), 0xFF, smem);
     if (shim_block_threads < 0) {
       std::vector<std::thread> pool;
       for (int t = 0; t < nth; ++t)

@@ -60,6 +60,25 @@
 // block in f32 (81 KB enedis) and 138 KB in f64 (161 KB), dynamic shared
 // memory.
 //
+// The tripolar fold (Grid.arctic): a j+1 read at the top row J-1 that
+// blom_tpu tags with a point class and vector-ness reads the fold's ghost,
+// the i-mirrored (sign-flipped for a vector) value at row J-3 (p and u
+// points) or J-2 (q and v points), parallel/arctic.py fold_row; an
+// untagged read there reads 0, as past a closed edge.  The body reads
+// across the fold derived fields as well as inputs, and a derived
+// field's mirror lies in another tile.  So a second kernel runs first,
+// the fold pre-pass: one row of blocks, each a tile of the two rows J-3
+// and J-2, runs stages 0 to 3 there (none of whose values on those rows
+// reads the ghost row, which the tests check) and writes each derived
+// field that a tagged read takes across the fold, mirrored and signed,
+// into a ghost buffer of (kk, N_GH, I).  The main kernel's FOLD
+// instantiation then stores, at each shared point of row J, the
+// buffer's ghost for those fields (0 past a closed i edge) and 0 for the
+// rest, and reads the inputs that tagged reads take at row J at their
+// mirrored points.  Rows below J and a grid without the fold run as
+// before, and the non-arctic instantiation is the same code as without
+// the fold.
+//
 // Build with -fmad=false so that each operation rounds as the plain
 // version's separate tensor operations do.
 
@@ -106,15 +125,27 @@ enum { S_BUM, S_BVM, S_BUN, S_BVN, S_UTOTM, S_VTOTM, S_UTOTN, S_VTOTN,
        S_UFLUX1 = S_DEFOR1,    // defor1, defor2 in stage 3
        S_VFLUX1 = S_DEFOR2 };
 
+// point classes of the fold's mirror (parallel/arctic.py fold_row)
+enum { K_P, K_U, K_Q, K_V };
+
+// the derived fields a tagged j+1 read takes across the fold, in the
+// order of the ghost buffer; the first GH_PASS0 (GH_PASS0_ENEDIS with
+// the flux bounds) are written after stage 2, the rest after stage 3
+enum { GH_UTOTN, GH_VTOTN, GH_VTOTM, GH_VFLUX0, GH_DPMX, GH_DL2U, GH_DL2V,
+       GH_DEFOR2, GH_POTVOR, GH_PASS0, GH_VHMIN = GH_PASS0, GH_VHMAX,
+       GH_PASS0_ENEDIS, GH_VSC2U = GH_PASS0_ENEDIS, GH_VSC4U, GH_VSC2V,
+       GH_VSC4V, N_GH };
+
 template <typename T>
 struct Args {
   const T *f[N_F];
   const T *d[N_D];
   const T *g[N_G];
   T *u_new, *v_new;
+  T *ghost;      // (kk, N_GH, I) fold ghosts; null without the fold
   T tsfac, delt1;
   T mdv2hi, mdv2lo, mdv4hi, mdv4lo, vsc2hi, vsc2lo, vsc4hi, vsc4lo;
-  int kk, J, I, periodic_i, periodic_j;
+  int kk, J, I, periodic_i, periodic_j, arctic;
 };
 
 template <typename T>
@@ -211,13 +242,51 @@ __device__ __forceinline__ void for_regions(const Region (&rg)[N], Fn fn) {
   }
 }
 
+// The shared array of each ghost field, its point class and whether
+// it is a vector component (blom_tpu's tags at its reads across the
+// fold: jp1uv(utotn), jp1vv(vtotn), jp1v(scv2 * vtotm**2),
+// jp1vv(vflux0), jp1p(dpmx), jp1uv(dl2u), jp1vv(dl2v), jp1q(defor2),
+// jp1q(potvor), jp1vv(vh_min), jp1vv(vh_max), jp1u(vsc2u), jp1u(vsc4u),
+// jp1v(vsc2v), jp1v(vsc4v))
+__device__ __forceinline__ void ghost_field(int g, int &slot, int &kind,
+                                            bool &vec) {
+  switch (g) {
+    case GH_UTOTN: slot = S_UTOTN; kind = K_U; vec = true; break;
+    case GH_VTOTN: slot = S_VTOTN; kind = K_V; vec = true; break;
+    case GH_VTOTM: slot = S_VTOTM; kind = K_V; vec = false; break;
+    case GH_VFLUX0: slot = S_VFLUX0; kind = K_V; vec = true; break;
+    case GH_DPMX: slot = S_DPMX; kind = K_P; vec = false; break;
+    case GH_DL2U: slot = S_DL2U; kind = K_U; vec = true; break;
+    case GH_DL2V: slot = S_DL2V; kind = K_V; vec = true; break;
+    case GH_DEFOR2: slot = S_DEFOR2; kind = K_Q; vec = false; break;
+    case GH_POTVOR: slot = S_POTVOR; kind = K_Q; vec = false; break;
+    case GH_VHMIN: slot = S_VHMIN; kind = K_V; vec = true; break;
+    case GH_VHMAX: slot = S_VHMAX; kind = K_V; vec = true; break;
+    case GH_VSC2U: slot = S_VSC2U; kind = K_U; vec = false; break;
+    case GH_VSC4U: slot = S_VSC4U; kind = K_U; vec = false; break;
+    case GH_VSC2V: slot = S_VSC2V; kind = K_V; vec = false; break;
+    default: slot = S_VSC4V; kind = K_V; vec = false;
+  }
+}
+
+// The row a ghost of point class `kind` mirrors and the mirrored column
+// of column i (in [0, I)): p, u from row J-3; q, v from J-2; p, v
+// reversed, u, q reversed and rolled by one
+__device__ __forceinline__ int fold_src_row(int kind, int J) {
+  return J - (kind == K_P || kind == K_U ? 3 : 2);
+}
+__device__ __forceinline__ int fold_col(int kind, int i, int I) {
+  return kind == K_P || kind == K_V ? I - 1 - i : (i == 0 ? 0 : I - i);
+}
+
 // One tile, at the k-level whose offset is k3.  Local indices (lj, li)
 // run over the shared arrays, the tile's first point at (H, H); (j, i)
 // are the global indices of the same point, wrapped where the axis is
-// periodic.  EDGE is false
-// for a whole tile whose reads all lie inside the grid: its index
-// arithmetic has no tests and its regions are constants.
-template <typename T, bool EDGE>
+// periodic.  EDGE is false for a whole tile whose reads all lie inside
+// the grid: its index arithmetic has no tests and its regions are
+// constants.  FOLD (with EDGE) is the tripolar grid's: row J holds the
+// fold's ghosts.
+template <typename T, bool EDGE, bool FOLD = false>
 struct Tile {
   const Args<T> &a;
   T *s;
@@ -232,11 +301,25 @@ struct Tile {
   static constexpr T epsilp = T(1e-12);
   static constexpr T epsilpl = T(1e-14);
 
+  // the main kernel's tile of the block
   __device__ Tile(const Args<T> &a_, T *s_)
       : a(a_), s(s_), k3(0),
         jt((int)blockIdx.y * TJ - H), it((int)blockIdx.x * TI - H) {
     nj_ = min(TJ, a.J - jt - H);
     ni_ = min(TI, a.I - it - H);
+  }
+  // the fold pre-pass's: nj rows from row j0
+  __device__ Tile(const Args<T> &a_, T *s_, int j0, int nj)
+      : a(a_), s(s_), k3(0), jt(j0 - H), it((int)blockIdx.x * TI - H) {
+    nj_ = nj;
+    ni_ = min(TI, a.I - it - H);
+  }
+  // the k-level and the offset of field g of the ghost buffer's level
+  __device__ __forceinline__ int level() const {
+    return (int)(k3 / ((long)a.J * a.I));
+  }
+  __device__ __forceinline__ long ghost_row(int g) const {
+    return ((long)level() * N_GH + g) * a.I;
   }
   __device__ __forceinline__ int nj() const {
     if constexpr (EDGE) return nj_; else return TJ;
@@ -270,6 +353,22 @@ struct Tile {
   __device__ __forceinline__ bool inside(int j, int i) const {
     return wrap(j, i);
   }
+  // wrap for a j+1 read tagged with point class KIND: at row J of a
+  // tripolar grid, the mirrored point below the fold (false past a
+  // closed i edge)
+  template <int KIND>
+  __device__ __forceinline__ bool wrap_fold(int &j, int &i) const {
+    if constexpr (FOLD) {
+      if (j == a.J) {
+        const bool in_i = i >= 0 && i < a.I;
+        i += i < 0 ? a.I : (i >= a.I ? -a.I : 0);
+        j = fold_src_row(KIND, a.J);
+        i = fold_col(KIND, i, a.I);
+        return in_i || a.periodic_i;
+      }
+    }
+    return wrap(j, i);
+  }
   // input reads at a point inside the grid
   __device__ __forceinline__ T F(int n, int j, int i) const {
     return __ldg(a.f[n] + k3 + j * a.I + i);
@@ -295,6 +394,39 @@ struct Tile {
     const bool ok = wrap(j, i);
     const T v = G(n, j, i);
     return ok ? v : T(0);
+  }
+  // tagged j+1 input reads: the fold's ghost at row J of a tripolar grid
+  template <int KIND>
+  __device__ __forceinline__ T Ft(int n, int j, int i) const {
+    const bool ok = wrap_fold<KIND>(j, i);
+    const T v = F(n, j, i);
+    return ok ? v : T(0);
+  }
+  template <int KIND>
+  __device__ __forceinline__ T Dt(int n, int j, int i) const {
+    const bool ok = wrap_fold<KIND>(j, i);
+    const T v = D(n, j, i);
+    return ok ? v : T(0);
+  }
+  template <int KIND>
+  __device__ __forceinline__ T Gt(int n, int j, int i) const {
+    const bool ok = wrap_fold<KIND>(j, i);
+    const T v = G(n, j, i);
+    return ok ? v : T(0);
+  }
+  // whether local row lj is row J of a tripolar grid, where the ghost
+  // fields hold the fold's ghosts
+  __device__ __forceinline__ bool fold_row(int lj) const {
+    if constexpr (FOLD) return jt + lj == a.J; else return false;
+  }
+  // the ghost of field g at local column li of row J (0 past a closed i
+  // edge), from the pre-pass's buffer
+  __device__ __forceinline__ T ghost(int g, int li) const {
+    int i = it + li;
+    const bool in_i = i >= 0 && i < a.I;
+    i += i < 0 ? a.I : (i >= a.I ? -a.I : 0);
+    const T v = a.ghost[ghost_row(g) + i];
+    return in_i || a.periodic_i ? v : T(0);
   }
   // a shared array at a local point
   __device__ __forceinline__ T &sh(int n, int lj, int li) const {
@@ -330,6 +462,12 @@ struct Tile {
     return clip01((hi - Do(dpb, j + jo, i + io))
                   / fmx(hi - F(flo, j, i), epsilp));
   }
+  // wgtjb's, whose j+1 read of pbu_m is tagged 'u'
+  __device__ __forceinline__ T wgt_n(int j, int i) const {
+    const T hi = F(F_PU_HI, j, i);
+    return clip01((hi - Dt<K_U>(D_PBU_M, j + 1, i))
+                  / fmx(hi - F(F_PU_LO, j, i), epsilp));
+  }
   __device__ __forceinline__ T du_(int j, int i) const {
     const bool ok = wrap(j, i);
     const T v = G(G_IU, j, i) * (F(F_DP_M, j, i) + Fo(F_DP_M, j, i - 1));
@@ -344,19 +482,24 @@ struct Tile {
   __device__ __forceinline__ void stage1(int g, int lj, int li) const {
     int j = jt + lj, i = it + li;
     const bool ok = wrap(j, i);
+    const bool fr = fold_row(lj);
     const auto put = [&](int n, T v) { sh(n, lj, li) = ok ? v : T(0); };
+    const auto putg = [&](int n, int gh, T v) {
+      sh(n, lj, li) = fr ? ghost(gh, li) : (ok ? v : T(0));
+    };
     switch (g) {
       case S1_TOTN:
-        put(S_UTOTN, tot(F_U_N, S_BUN, G_IU, lj, li, j, i));
-        put(S_VTOTN, tot(F_V_N, S_BVN, G_IV, lj, li, j, i));
+        putg(S_UTOTN, GH_UTOTN, tot(F_U_N, S_BUN, G_IU, lj, li, j, i));
+        putg(S_VTOTN, GH_VTOTN, tot(F_V_N, S_BVN, G_IV, lj, li, j, i));
         break;
       case S1_TOTM: {
         const T utm = tot(F_U_M, S_BUM, G_IU, lj, li, j, i);
         const T vtm = tot(F_V_M, S_BVM, G_IV, lj, li, j, i);
         put(S_UTOTM, utm);
-        put(S_VTOTM, vtm);
+        putg(S_VTOTM, GH_VTOTM, vtm);
         put(S_UFLUX0, utm * fmx(F(F_DPU_M, j, i), cutoff) * G(G_IU, j, i));
-        put(S_VFLUX0, vtm * fmx(F(F_DPV_M, j, i), cutoff) * G(G_IV, j, i));
+        putg(S_VFLUX0, GH_VFLUX0,
+             vtm * fmx(F(F_DPV_M, j, i), cutoff) * G(G_IV, j, i));
         break;
       }
       case S1_DPMX: {
@@ -365,11 +508,11 @@ struct Tile {
         // neighbourhood thickness maxima at q (:355-396)
         const T m = fmx(fmx(fmx(du_(j, i), du_(j - 1, i)), dv_(j, i)),
                         dv_(j, i - 1));
-        put(S_DPMX, fmx(m, T(8) * cutoff));
+        putg(S_DPMX, GH_DPMX, fmx(m, T(8) * cutoff));
         break;
       }
       case S1_WGTJB:
-        put(S_WGTJB, wgt(F_PU_HI, F_PU_LO, D_PBU_M, 1, 0, j, i));
+        put(S_WGTJB, wgt_n(j, i));
         break;
       default:
         put(S_WGTIB, wgt(F_PV_HI, F_PV_LO, D_PBV_M, 0, 1, j, i));
@@ -478,40 +621,44 @@ struct Tile {
   __device__ __forceinline__ void stage2(int g, int lj, int li) const {
     int j = jt + lj, i = it + li;
     const bool ok = wrap(j, i);
+    const bool fr = fold_row(lj);
     const auto put = [&](int n, T v) { sh(n, lj, li) = ok ? v : T(0); };
+    const auto putg = [&](int n, int gh, T v) {
+      sh(n, lj, li) = fr ? ghost(gh, li) : (ok ? v : T(0));
+    };
     switch (g) {
       case S2_DL2: {
         const T utn = sh(S_UTOTN, lj, li), vtn = sh(S_VTOTN, lj, li);
-        put(S_DL2U, (utn - T(.25) * (sh(S_UTOTN, lj, li + 1)
-                                     + sh(S_UTOTN, lj, li - 1)
-                                     + uja(lj, li) + ujb(lj, li)))
-                    * G(G_IU, j, i));
-        put(S_DL2V, (vtn - T(.25) * (sh(S_VTOTN, lj + 1, li)
-                                     + sh(S_VTOTN, lj - 1, li)
-                                     + via(lj, li) + vib(lj, li)))
-                    * G(G_IV, j, i));
+        putg(S_DL2U, GH_DL2U, (utn - T(.25) * (sh(S_UTOTN, lj, li + 1)
+                                               + sh(S_UTOTN, lj, li - 1)
+                                               + uja(lj, li) + ujb(lj, li)))
+                                  * G(G_IU, j, i));
+        putg(S_DL2V, GH_DL2V, (vtn - T(.25) * (sh(S_VTOTN, lj + 1, li)
+                                               + sh(S_VTOTN, lj - 1, li)
+                                               + via(lj, li) + vib(lj, li)))
+                                  * G(G_IV, j, i));
         break;
       }
       case S2_DEFOR1:
         put(S_DEFOR1,
             sq((sh(S_UTOTN, lj, li + 1) * Go(G_SCUY, j, i + 1)
                 - sh(S_UTOTN, lj, li) * G(G_SCUY, j, i))
-               - (sh(S_VTOTN, lj + 1, li) * Go(G_SCVX, j + 1, i)
+               - (sh(S_VTOTN, lj + 1, li) * Gt<K_V>(G_SCVX, j + 1, i)
                   - sh(S_VTOTN, lj, li) * G(G_SCVX, j, i)))
             * G(G_SCP2I, j, i));
         break;
       case S2_DEFOR2:
-        put(S_DEFOR2, defor2(lj, li, j, i));
+        putg(S_DEFOR2, GH_DEFOR2, defor2(lj, li, j, i));
         break;
       case S2_POTVOR:
-        put(S_POTVOR, potvor(lj, li, j, i));
+        putg(S_POTVOR, GH_POTVOR, potvor(lj, li, j, i));
         break;
       case S2_KE:     // Arakawa kinetic energy (:609-663)
         put(S_KE, T(.25) * (G(G_SCU2, j, i) * sq(sh(S_UTOTM, lj, li))
                             + Go(G_SCU2, j, i + 1)
                                 * sq(sh(S_UTOTM, lj, li + 1))
                             + G(G_SCV2, j, i) * sq(sh(S_VTOTM, lj, li))
-                            + Go(G_SCV2, j + 1, i)
+                            + Gt<K_V>(G_SCV2, j + 1, i)
                                 * sq(sh(S_VTOTM, lj + 1, li)))
                   * G(G_SCP2I, j, i));
         break;
@@ -529,8 +676,8 @@ struct Tile {
         hminmax(T(.5) * sh(S_VTOTM, lj, li)
                     * (F(F_DP_M, j, i) + Fo(F_DP_M, j - 1, i)),
                 sh(S_VFLUX0, lj, li), lo, hi);
-        put(S_VHMIN, lo);
-        put(S_VHMAX, hi);
+        putg(S_VHMIN, GH_VHMIN, lo);
+        putg(S_VHMAX, GH_VHMAX, hi);
       }
     }
   }
@@ -557,26 +704,33 @@ struct Tile {
   __device__ __forceinline__ void stage3(int lj, int li) const {
     int j = jt + lj, i = it + li;
     const bool ok = wrap(j, i);
-    const auto put = [&](int n, T v) { sh(n, lj, li) = ok ? v : T(0); };
+    const bool fr = fold_row(lj);
+    const auto put = [&](int n, int gh, T v) {
+      sh(n, lj, li) = fr ? ghost(gh, li) : (ok ? v : T(0));
+    };
     const T dw = D(D_DIFWGT, j, i);
     const T du = fsqrt(T(.5) * (sh(S_DEFOR1, lj, li)
                                 + sh(S_DEFOR1, lj, li - 1)
                                 + sh(S_DEFOR2, lj, li)
                                 + sh(S_DEFOR2, lj + 1, li)));
     T qw = T(.5) * (Do(D_DIFWGT, j, i - 1) + dw);
-    put(S_VSC2U, fmx(qw * a.mdv2hi + (T(1) - qw) * a.mdv2lo,
-                     (qw * a.vsc2hi + (T(1) - qw) * a.vsc2lo) * du));
-    put(S_VSC4U, fmx(qw * a.mdv4hi + (T(1) - qw) * a.mdv4lo,
-                     (qw * a.vsc4hi + (T(1) - qw) * a.vsc4lo) * du));
+    put(S_VSC2U, GH_VSC2U,
+        fmx(qw * a.mdv2hi + (T(1) - qw) * a.mdv2lo,
+            (qw * a.vsc2hi + (T(1) - qw) * a.vsc2lo) * du));
+    put(S_VSC4U, GH_VSC4U,
+        fmx(qw * a.mdv4hi + (T(1) - qw) * a.mdv4lo,
+            (qw * a.vsc4hi + (T(1) - qw) * a.vsc4lo) * du));
     const T dv = fsqrt(T(.5) * (sh(S_DEFOR1, lj, li)
                                 + sh(S_DEFOR1, lj - 1, li)
                                 + sh(S_DEFOR2, lj, li)
                                 + sh(S_DEFOR2, lj, li + 1)));
     qw = T(.5) * (Do(D_DIFWGT, j - 1, i) + dw);
-    put(S_VSC2V, fmx(qw * a.mdv2hi + (T(1) - qw) * a.mdv2lo,
-                     (qw * a.vsc2hi + (T(1) - qw) * a.vsc2lo) * dv));
-    put(S_VSC4V, fmx(qw * a.mdv4hi + (T(1) - qw) * a.mdv4lo,
-                     (qw * a.vsc4hi + (T(1) - qw) * a.vsc4lo) * dv));
+    put(S_VSC2V, GH_VSC2V,
+        fmx(qw * a.mdv2hi + (T(1) - qw) * a.mdv2lo,
+            (qw * a.vsc2hi + (T(1) - qw) * a.vsc2lo) * dv));
+    put(S_VSC4V, GH_VSC4V,
+        fmx(qw * a.mdv4hi + (T(1) - qw) * a.mdv4lo,
+            (qw * a.vsc4hi + (T(1) - qw) * a.vsc4lo) * dv));
   }
 
   // ---- stage 4: longitudinal momentum fluxes at p (:821-836), 0 where
@@ -597,13 +751,13 @@ struct Tile {
     return iu + iu_e > T(0) ? fl : T(0);
   }
   __device__ __forceinline__ T vflux1(int lj, int li, int j, int i) const {
-    const T iv = G(G_IV, j, i), iv_n = Go(G_IV, j + 1, i);
+    const T iv = G(G_IV, j, i), iv_n = Gt<K_V>(G_IV, j + 1, i);
     const T v2 = sh(S_VSC2V, lj, li), v2n = sh(S_VSC2V, lj + 1, li);
     const T v4 = sh(S_VSC4V, lj, li), v4n = sh(S_VSC4V, lj + 1, li);
     const T v2a = iv > T(0) ? v2 : v2n, v2b = iv_n > T(0) ? v2n : v2;
     const T v4a = iv > T(0) ? v4 : v4n, v4b = iv_n > T(0) ? v4n : v4;
     const T harm = hfharm(fmx(F(F_DPV_M, j, i), onemm),
-                          fmx(Fo(F_DPV_M, j + 1, i), onemm));
+                          fmx(Ft<K_V>(F_DPV_M, j + 1, i), onemm));
     const T difmxp = G(G_DIFMXP, j, i), scpx = G(G_SCPX, j, i);
     const T fl = fmn(difmxp, (v2a + v2b) * scpx) * harm
                      * (sh(S_VTOTN, lj, li) - sh(S_VTOTN, lj + 1, li))
@@ -644,7 +798,7 @@ struct Tile {
                        + wjb * slip * dl2u;
       const T v2 = sh(S_VSC2U, lj, li), v4 = sh(S_VSC4U, lj, li);
       const bool ws = Go(G_IU, j - 1, i) > T(0);
-      const bool wn = Go(G_IU, j + 1, i) > T(0);
+      const bool wn = Gt<K_U>(G_IU, j + 1, i) > T(0);
       const T v2a = ws ? sh(S_VSC2U, lj - 1, li) : v2;
       const T v4a = ws ? sh(S_VSC4U, lj - 1, li) : v4;
       const T v2b = wn ? sh(S_VSC2U, lj + 1, li) : v2;
@@ -653,18 +807,22 @@ struct Tile {
       const T dpxy = fmx(dpu, onemm);
       T dpja = fmx(Fo(F_DPU_M, j - 1, i), onemm);
       dpja = dpja + wja * (dpxy - dpja);
-      T dpjb = fmx(Fo(F_DPU_M, j + 1, i), onemm);
+      T dpjb = fmx(Ft<K_U>(F_DPU_M, j + 1, i), onemm);
       dpjb = dpjb + wjb * (dpxy - dpjb);
       const T hja = hfharm(dpja, dpxy), hjb = hfharm(dpjb, dpxy);
       const T difmxq = G(G_DIFMXQ, j, i), scqx = G(G_SCQX, j, i);
-      const T difmxq_n = Go(G_DIFMXQ, j + 1, i);
-      const T scqx_n = Go(G_SCQX, j + 1, i);
+      const T difmxq_n = Gt<K_Q>(G_DIFMXQ, j + 1, i);
+      // jp1q(scqx) in the Laplacian term, an untagged jp1(scqx) in the
+      // biharmonic one, as in blom_tpu (0 across the fold)
+      const T scqx_n = Gt<K_Q>(G_SCQX, j + 1, i);
+      T scqx_n0 = scqx_n;
+      if constexpr (FOLD) scqx_n0 = Go(G_SCQX, j + 1, i);
       const T uflux2 = (fmn(difmxq, (v2 + v2a) * scqx) * hja * (uja_ - utn)
                         + fmn(T(.125) * difmxq, (v4 + v4a) * scqx) * hja
                             * (dl2uja - dl2u)) * iu;
       const T uflux3 = (fmn(difmxq_n, (v2 + v2b) * scqx_n) * hjb
                             * (utn - ujb_)
-                        + fmn(T(.125) * difmxq_n, (v4 + v4b) * scqx_n) * hjb
+                        + fmn(T(.125) * difmxq_n, (v4 + v4b) * scqx_n0) * hjb
                             * (dl2u - dl2ujb)) * iu;
 
       const T pbu_m = D(D_PBU_M, j, i);
@@ -795,9 +953,9 @@ struct Tile {
   }
 };
 
-template <typename T, int MOM, bool EDGE>
+template <typename T, int MOM, bool EDGE, bool FOLD>
 __device__ __forceinline__ void run_tile(const Args<T> &a) {
-  Tile<T, EDGE> t(a, reinterpret_cast<T *>(momtum_smem));
+  Tile<T, EDGE, FOLD> t(a, reinterpret_cast<T *>(momtum_smem));
   const Region r0[] = {t.region(-2, 2, -2, 2)};
   for_regions(r0, [&](int, int lj, int li) { t.stage0(lj, li); });
   const Region r3[] = {t.region(-1, 1, -1, 1)};
@@ -821,16 +979,60 @@ __device__ __forceinline__ void run_tile(const Args<T> &a) {
   }
 }
 
-template <typename T, int MOM>
+// FOLD: the tripolar grid's instantiation, which reads the pre-pass's
+// ghost buffer (a tile whose ring reaches row J is an edge tile)
+template <typename T, int MOM, bool FOLD>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<T>)
     momtum_uv_kernel(Args<T> a) {
   // the reads of a tile reach H + 1 points past it
   const int j0 = blockIdx.y * TJ, i0 = blockIdx.x * TI;
   if (j0 < H + 1 || j0 + TJ + H + 1 > a.J || i0 < H + 1
       || i0 + TI + H + 1 > a.I)
-    run_tile<T, MOM, true>(a);
+    run_tile<T, MOM, true, FOLD>(a);
   else
-    run_tile<T, MOM, false>(a);
+    run_tile<T, MOM, false, false>(a);
+}
+
+// The fold pre-pass: per block a tile of rows J-3 and J-2 and TI columns,
+// KB levels; stages 0 to 3 as the main kernel's (closed in j: no value
+// on those rows reads row J), then each ghost field written to the
+// buffer at its mirrored column, sign-flipped for a vector: the fields of
+// stages 1 and 2 before stage 3 overwrites dpmx's array, the viscosities
+// after it.
+template <typename T, int MOM>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<T>)
+    momtum_fold_kernel(Args<T> a) {
+  Tile<T, true> t(a, reinterpret_cast<T *>(momtum_smem), a.J - 3, 2);
+  const Region r0[] = {t.region(-2, 2, -2, 2)};
+  for_regions(r0, [&](int, int lj, int li) { t.stage0(lj, li); });
+  const Region r3[] = {t.region(-1, 1, -1, 1)};
+  const int ni = t.ni();
+  const auto out = [&](int g0, int g1) {
+    for (int idx = threadIdx.x; idx < (g1 - g0) * ni; idx += blockDim.x) {
+      const int g = g0 + idx / ni, li = H + idx % ni;
+      int slot, kind;
+      bool vec;
+      ghost_field(g, slot, kind, vec);
+      const int lj = H + fold_src_row(kind, a.J) - (a.J - 3);
+      const T v = t.sh(slot, lj, li);
+      a.ghost[t.ghost_row(g) + fold_col(kind, t.it + li, a.I)] =
+          vec ? -v : v;
+    }
+  };
+  const int k1 = min(a.kk, ((int)blockIdx.z + 1) * KB);
+  for (int k = blockIdx.z * KB; k < k1; ++k) {
+    t.k3 = (long)k * a.J * a.I;
+    __syncthreads();
+    t.run_stage1();
+    __syncthreads();
+    t.template run_stage2<MOM>();
+    __syncthreads();
+    out(0, MOM == MOM_ENEDIS ? GH_PASS0_ENEDIS : GH_PASS0);
+    __syncthreads();
+    for_regions(r3, [&](int, int lj, int li) { t.stage3(lj, li); });
+    __syncthreads();
+    out(GH_PASS0_ENEDIS, N_GH);
+  }
 }
 
 // dynamic shared memory of a block
@@ -838,22 +1040,31 @@ int shared_bytes(int elem_size, int scheme) {
   return (scheme == MOM_ENEDIS ? N_S_ENEDIS : N_S) * SJ * SI * elem_size;
 }
 
-template <typename T, int MOM>
-int launch_scheme(const Args<T> &a, cudaStream_t s) {
-  const int bytes = shared_bytes((int)sizeof(T), MOM);
+template <typename K, typename T>
+int launch_kernel(K kern, const Args<T> &a, int scheme, int rows,
+                  cudaStream_t s) {
+  const int bytes = shared_bytes((int)sizeof(T), scheme);
   const cudaError_t err = cudaFuncSetAttribute(
-      momtum_uv_kernel<T, MOM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.I + TI - 1) / TI, (a.J + TJ - 1) / TJ,
-                  (a.kk + KB - 1) / KB);
-  momtum_uv_kernel<T, MOM><<<grid, NTHREADS, bytes, s>>>(a);
+  const dim3 grid((a.I + TI - 1) / TI, rows, (a.kk + KB - 1) / KB);
+  kern<<<grid, NTHREADS, bytes, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MOM>
+int launch_scheme(const Args<T> &a, bool fold_pass, cudaStream_t s) {
+  if (fold_pass)
+    return launch_kernel(momtum_fold_kernel<T, MOM>, a, MOM, 1, s);
+  const int rows = (a.J + TJ - 1) / TJ;
+  if (a.arctic)
+    return launch_kernel(momtum_uv_kernel<T, MOM, true>, a, MOM, rows, s);
+  return launch_kernel(momtum_uv_kernel<T, MOM, false>, a, MOM, rows, s);
 }
 
 template <typename T>
 int launch(void *const *ptrs, const double *dargs, const int *iargs,
-           void *stream) {
+           void *stream, bool fold_pass) {
   Args<T> a;
   int p = 0;
   for (int n = 0; n < N_F; ++n) a.f[n] = (const T *)ptrs[p++];
@@ -861,6 +1072,7 @@ int launch(void *const *ptrs, const double *dargs, const int *iargs,
   for (int n = 0; n < N_G; ++n) a.g[n] = (const T *)ptrs[p++];
   a.u_new = (T *)ptrs[p++];
   a.v_new = (T *)ptrs[p++];
+  a.ghost = (T *)ptrs[p++];
   a.tsfac = (T)dargs[0];
   a.delt1 = (T)dargs[1];
   a.mdv2hi = (T)dargs[2];
@@ -876,11 +1088,17 @@ int launch(void *const *ptrs, const double *dargs, const int *iargs,
   a.I = iargs[2];
   a.periodic_i = iargs[3];
   a.periodic_j = iargs[4];
+  a.arctic = iargs[6];
+  // the fold needs its ghost buffer, a grid closed in j and the three
+  // rows below the top row that it mirrors
+  if ((a.arctic || fold_pass)
+      && (a.ghost == nullptr || a.periodic_j || a.J < 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (iargs[5]) {
-    case MOM_ENSCON: return launch_scheme<T, MOM_ENSCON>(a, s);
-    case MOM_ENECON: return launch_scheme<T, MOM_ENECON>(a, s);
-    case MOM_ENEDIS: return launch_scheme<T, MOM_ENEDIS>(a, s);
+    case MOM_ENSCON: return launch_scheme<T, MOM_ENSCON>(a, fold_pass, s);
+    case MOM_ENECON: return launch_scheme<T, MOM_ENECON>(a, fold_pass, s);
+    case MOM_ENEDIS: return launch_scheme<T, MOM_ENEDIS>(a, fold_pass, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -891,24 +1109,43 @@ extern "C" {
 
 // Launches the core once on `stream`.  ptrs: the 17 MomtumKIn fields, the
 // 12 Momtum2DIn fields, the 21 grid planes (in the order of the enums
-// above), u_new, v_new.  dargs: tsfac, delt1, mdv2hi, mdv2lo, mdv4hi,
+// above), u_new, v_new, and the (kk, N_GH, I) fold ghost buffer (null
+// without the fold).  dargs: tsfac, delt1, mdv2hi, mdv2lo, mdv4hi,
 // mdv4lo, vsc2hi, vsc2lo, vsc4hi, vsc4lo.  iargs: kk, J, I, periodic_i,
-// periodic_j, scheme (0 enscon, 1 enecon, 2 enedis).  Returns the
-// cudaError_t of the launch.
+// periodic_j, scheme (0 enscon, 1 enecon, 2 enedis), arctic.  With
+// arctic, the fold pre-pass (momtum_fold_*) must have filled the ghost
+// buffer on the same stream.  Returns the cudaError_t of the launch.
 int momtum_uv_f32(void *const *ptrs, const double *dargs, const int *iargs,
                   void *stream) {
-  return launch<float>(ptrs, dargs, iargs, stream);
+  return launch<float>(ptrs, dargs, iargs, stream, false);
 }
 
 int momtum_uv_f64(void *const *ptrs, const double *dargs, const int *iargs,
                   void *stream) {
-  return launch<double>(ptrs, dargs, iargs, stream);
+  return launch<double>(ptrs, dargs, iargs, stream, false);
 }
 
-// Bytes of dynamic shared memory a block of the kernel takes, for
-// elements of elem_size bytes and the scheme numbered as in iargs.
+// Launches the fold pre-pass once on `stream`: the same arguments as
+// momtum_uv_*, with arctic set; fills the ghost buffer (u_new and v_new
+// are not written).
+int momtum_fold_f32(void *const *ptrs, const double *dargs, const int *iargs,
+                    void *stream) {
+  return launch<float>(ptrs, dargs, iargs, stream, true);
+}
+
+int momtum_fold_f64(void *const *ptrs, const double *dargs, const int *iargs,
+                    void *stream) {
+  return launch<double>(ptrs, dargs, iargs, stream, true);
+}
+
+// Bytes of dynamic shared memory a block of the kernel (and of the fold
+// pre-pass) takes, for elements of elem_size bytes and the scheme
+// numbered as in iargs.
 int momtum_uv_shared_bytes(int elem_size, int scheme) {
   return shared_bytes(elem_size, scheme);
 }
+
+// Fields of the fold ghost buffer per level: its shape is (kk, this, I).
+int momtum_uv_ghost_fields() { return N_GH; }
 
 }

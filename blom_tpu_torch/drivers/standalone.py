@@ -1,10 +1,10 @@
 """Standalone model driver.
 
-Counterpart of `build_fuk95`, `build_channel` and `run` in
-`blom_tpu/drivers/standalone.py` (BLOM's drivers/nocoupler/blom.F:20-67):
-build the fuk95 or the channel configuration, initialize it and
-integrate the step loop.  Runs on the card unless the caller passes
-another device."""
+Counterpart of `build_fuk95`, `build_channel`, `build_tripolar` and `run`
+in `blom_tpu/drivers/standalone.py` (BLOM's
+drivers/nocoupler/blom.F:20-67): build the fuk95, the channel or the
+synthetic tripolar configuration, initialize it and integrate the step
+loop.  Runs on the card unless the caller passes another device."""
 
 from __future__ import annotations
 
@@ -67,7 +67,8 @@ def _assemble(grid, e, par, clock, state, forcing, dtype, device,
         periodic=grid.periodic_i, dtype=dtype, device=device)
     coeffs_j = cppm_mod.init_cppm_coeffs(
         ip_np, grid.scpy.cpu().double().numpy(), axis=-2,
-        periodic=grid.periodic_j, dtype=dtype, device=device)
+        periodic=grid.periodic_j, dtype=dtype, device=device,
+        arctic=grid.arctic)
     dfl = zero_diffusion_fields(kdm, grid.shape, dtype, device)
     swabs = init_swabs(grid.shape, 'jerlov', 3, dtype, device)
     return Model(grid=grid, e=e, par=par, coeffs_i=coeffs_i,
@@ -188,6 +189,48 @@ def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
         forcing,
         taux=torch.as_tensor(taux, dtype=dtype, device=device) * grid.iu,
         tauy=torch.as_tensor(tauy, dtype=dtype, device=device) * grid.iv)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
+
+
+def build_tripolar(dtype=torch.float64, itdm=32, jtdm=24, kdm=6,
+                   baclin=180., batrop=6., device=None) -> Model:
+    """Assemble the synthetic tripolar-fold experiment
+    (configs/tripolar.py) as blom_tpu's build_tripolar does:
+    i-periodic, closed south, the Arctic bipolar fold on the top row
+    (nreg=2 topology, mod_xc.F90:2405-2700), the initial state's
+    fold-duplicated top row synced, enscon momentum, no coastal
+    wave-breaking damping, the ALE regrid/remap, and the vertical
+    mixing, lateral diffusivity estimate and thermf at their defaults.
+    `itdm` must be even: the q/v top-row sync mirrors the western half
+    onto the eastern.  `device` defaults to CUDA and raises when CUDA is
+    missing."""
+    from ..configs import tripolar as cfg
+    from ..parallel.arctic import sync_state
+
+    if itdm % 2:
+        raise ValueError(f'build_tripolar: itdm={itdm} must be even (the '
+                         'fold mirrors the top row onto its own halves)')
+    device = _device(device)
+    clock = modeltime.init_timevars('fuk95', baclin, batrop,
+                                    20000101, 20000101)
+    grid = cfg.make_grid(baclin, itdm, jtdm, kdm, dtype=dtype,
+                         device=device)
+    e = eos.init_eos(pref=0., expcnf='fuk95')
+
+    z, temp, saln, sigmar, phi = cfg.initial_profiles(itdm, jtdm, kdm)
+    state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
+                            sigmar=sigmar, dtype=dtype)
+    # enforce the fold-duplicated top row on the initial state
+    state = sync_state(state)
+
+    par = StepParams(
+        baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
+        momtum=MomtumParams(vsc2hi=.2, vsc2lo=.2, cbar=.05, cb=.002,
+                            mommth='enscon'),
+        barotp=BarotpParams(cwbdts=0., cwbdls=25., mommth='enscon'),
+        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
+        ale=make_ale_params(kdm))
+    forcing = zero_forcing(kdm, grid.shape, dtype, device)
     return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 
 

@@ -4,7 +4,8 @@ Counterpart of the CPPM branch of `blom_tpu/dynamics/advect.py`
 (BLOM's mod_advect.F90:59-189): CFL-clamped flux areas cau/cav from the
 mid-level baroclinic velocity, the predicted barotropic transport and
 the eddy/submesoscale transports (mod_advect.F90:71-94), then the
-Strang-split CPPM sweeps (mod_cppm.F90:2748-2834)."""
+Strang-split CPPM sweeps (mod_cppm.F90:2748-2834), the j-sweep on a
+tripolar grid over the fold-extended domain."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from ..core.constants import onemm, epsilpl
 from ..core.grid import Grid
 from ..core.state import State, cumulative_p
-from .cppm import CppmCoeffs, cppm_sweep, dpeps
+from .cppm import NGHOST_ARCTIC, CppmCoeffs, cppm_sweep, dpeps
 from .diffusion_fields import DiffusionFields
 
 
@@ -25,6 +26,10 @@ def advect(grid: Grid, s: State, dfl: DiffusionFields,
            cppm_limiting: str = 'non_oscillatory') -> State:
     """Advect dp, temp, saln and passive tracers of level n; accumulate
     the mass and tracer fluxes of level m.  Updates `s` in place."""
+    if advmth == 'remap' and grid.arctic:
+        raise NotImplementedError(
+            "advmth='remap' does not support tripolar grids yet; "
+            "use advmth='cppm' (fold-aware j-sweeps)")
     if advmth != 'cppm':
         raise NotImplementedError(f'advmth={advmth!r} is not ported')
     iu, iv, ip = grid.iu, grid.iv, grid.ip
@@ -63,11 +68,28 @@ def advect(grid: Grid, s: State, dfl: DiffusionFields,
                           limiting=cppm_limiting, ax=-1)
 
     def sweep_j(h, tm, second):
-        div = (grid.ip1(cau) - cau) if second else None
-        return cppm_sweep(h, tm, cav, s.pbv[n], p[:-1], p[1:], grid.scp2i,
-                          coeffs_j, grid.periodic_j, div_corr=div,
-                          compatibility=cppm_compatibility,
-                          limiting=cppm_limiting, ax=-2)
+        # on tripolar grids the sweep domain is extended by fold ghost
+        # rows so the stencil reads across the bipolar seam (the
+        # reference's (0,3) halo update, mod_cppm.F90:1956-1960); the
+        # outputs are cut back to the grid's rows
+        if grid.arctic:
+            from ..parallel.arctic import fold_extend
+
+            def ext(a, kind, vector=False):
+                return fold_extend(a, kind, vector, NGHOST_ARCTIC)
+        else:
+            def ext(a, kind, vector=False):
+                return a
+
+        jdm = h.shape[-2]
+        div = ext(grid.ip1(cau) - cau, 'p') if second else None
+        out = cppm_sweep(ext(h, 'p'), ext(tm, 'p'), ext(cav, 'v', True),
+                         ext(s.pbv[n], 'v'), ext(p[:-1], 'p'),
+                         ext(p[1:], 'p'), ext(grid.scp2i, 'p'), coeffs_j,
+                         grid.periodic_j, div_corr=div,
+                         compatibility=cppm_compatibility,
+                         limiting=cppm_limiting, ax=-2)
+        return tuple(o[..., :jdm, :].contiguous() for o in out)
 
     if i_first:
         h1, tm1, hfu, htfu = sweep_i(h, tm, False)

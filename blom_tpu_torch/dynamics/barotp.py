@@ -117,7 +117,11 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
     in place."""
     if par.mommth not in ('enscon', 'enecon', 'enedis'):
         raise ValueError(f'barotp mommth={par.mommth!r}')
-    im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
+    im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
+    # j+1 reads of a v-grid vector and of a q-grid scalar, fold-aware
+    # (global_shifts, blom_tpu/dynamics/barotp.py:121-125)
+    jp1v = lambda a: grid.jp1(a, 'v', True)     # noqa: E731
+    jp1q = lambda a: grid.jp1(a, 'q')           # noqa: E731
     weights = substep_weights(lstep)
 
     def pgf_terms_u(wo, wm, wn, pb_nl):
@@ -145,10 +149,10 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
     def coriolis_u(vb_src, pvt_w):
         vsx = vb_src * fld['scvxi']
         if par.mommth == 'enscon':
-            return (vsx + jp1(vsx) + im1(vsx) + im1(jp1(vsx))) \
-                * (pvt_w + jp1(pvt_w)) * .125
+            return (vsx + jp1v(vsx) + im1(vsx) + im1(jp1v(vsx))) \
+                * (pvt_w + jp1q(pvt_w)) * .125
         return .25 * ((vsx + im1(vsx)) * pvt_w
-                      + (jp1(vsx) + im1(jp1(vsx))) * jp1(pvt_w))
+                      + (jp1v(vsx) + im1(jp1v(vsx))) * jp1q(pvt_w))
 
     def coriolis_v(ub_src, pvt_w):
         usy = ub_src * fld['scuyi']
@@ -161,7 +165,7 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
     def continuity(pb_ml, pb_nl, ubf_ml, vbf_ml):
         return ((1. - wbaro) * pb_ml + wbaro * pb_nl
                 - (1. + wbaro) * dlt
-                * (ip1(ubf_ml) - ubf_ml + jp1(vbf_ml) - vbf_ml)
+                * (ip1(ubf_ml) - ubf_ml + jp1v(vbf_ml) - vbf_ml)
                 * fld['scp2i']) * fld['ip']
 
     def u_update(ubf_ml, ubf_nl, pb_nl, utndcy):

@@ -176,6 +176,10 @@ def _set_stencil_coeffs_np(sm, dx):
     return st, hevc, tmc0, tmcl, tmcr
 
 
+NGHOST_ARCTIC = 3   # fold ghost rows for the j-sweep (the reference's
+                    # (0,3) xctilr halo width, mod_cppm.F90:1956-1960)
+
+
 def init_cppm_coeffs(ip_np: np.ndarray, dx_np: np.ndarray, axis: int,
                      periodic: bool, dtype=torch.float64, device='cpu',
                      arctic: bool = False) -> CppmCoeffs:
@@ -183,11 +187,20 @@ def init_cppm_coeffs(ip_np: np.ndarray, dx_np: np.ndarray, axis: int,
     mod_cppm.F90:2504-2746).  `ip_np` and `dx_np` are (jdm, idm); `axis`
     is the sweep axis (-1: i, -2: j).  All returned arrays are in
     natural (j, i) layout.  Shifted masks zero-fill at closed ends; the
-    shifted grid spacing replicates the edge value."""
-    if arctic:
-        raise NotImplementedError('tripolar (arctic) grids are not ported')
+    shifted grid spacing replicates the edge value.
+
+    With `arctic` the domain is extended by NGHOST_ARCTIC fold ghost
+    rows (p-grid mirror: ghost jj+1+m = i-reversed row jj-2-m,
+    mod_xc.F90:2430-2442) so the sweep sees the stencil across the
+    bipolar seam: for axis=-2 the ghost rows join the sweep columns; for
+    axis=-1 they are extra independent sweep rows."""
     ip_np = np.asarray(ip_np, np.float64)
     dx_np = np.asarray(dx_np, np.float64)
+    if arctic:
+        gh_ip = [ip_np[-3 - mm][::-1][None] for mm in range(NGHOST_ARCTIC)]
+        gh_dx = [dx_np[-3 - mm][::-1][None] for mm in range(NGHOST_ARCTIC)]
+        ip_np = np.concatenate([ip_np] + gh_ip, axis=0)
+        dx_np = np.concatenate([dx_np] + gh_dx, axis=0)
     if axis == -2:
         ip_np = ip_np.T
         dx_np = dx_np.T

@@ -110,7 +110,7 @@ def potvor_field(grid: Grid, dp_m, utotm, vtotm, dpmx=None):
     treatment (mod_momtum.F90:473-575)."""
     iu, iv, iq = grid.iu, grid.iv, grid.iq
     im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
-    jp1p = grid.jp1
+    jp1p = lambda a: grid.jp1(a, 'p')           # noqa: E731
     cutoff = onem
     if dpmx is None:
         dpmx = _dpmx(grid, dp_m)
@@ -158,15 +158,18 @@ def coriolis_terms(grid: Grid, dp_m, utotm, vtotm, uflux0, vflux0, potvor,
     """Coriolis advection terms cau/cav of the three vorticity schemes
     (enscon/enecon/enedis, mod_momtum.F90:664-838)."""
     iu, iv = grid.iu, grid.iv
-    im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
+    im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
+    jp1q = lambda a: grid.jp1(a, 'q')           # noqa: E731
+    jp1vv = lambda a: grid.jp1(a, 'v', True)    # noqa: E731
     if mommth == 'enscon':
-        cau = .125 * (vflux0 + jp1(vflux0) + im1(vflux0)
-                      + im1(jp1(vflux0))) * (potvor + jp1(potvor)) * iu
+        cau = .125 * (vflux0 + jp1vv(vflux0) + im1(vflux0)
+                      + im1(jp1vv(vflux0))) * (potvor + jp1q(potvor)) * iu
         cav = -.125 * (uflux0 + ip1(uflux0) + jm1(uflux0)
                        + ip1(jm1(uflux0))) * (potvor + ip1(potvor)) * iv
     elif mommth == 'enecon':
         cau = .25 * ((vflux0 + im1(vflux0)) * potvor
-                     + (jp1(vflux0) + im1(jp1(vflux0))) * jp1(potvor)) * iu
+                     + (jp1vv(vflux0) + im1(jp1vv(vflux0))) * jp1q(potvor)) \
+            * iu
         cav = -.25 * ((uflux0 + jm1(uflux0)) * potvor
                       + ip1(uflux0 + jm1(uflux0)) * ip1(potvor)) * iv
     elif mommth == 'enedis':
@@ -175,8 +178,8 @@ def coriolis_terms(grid: Grid, dp_m, utotm, vtotm, uflux0, vflux0, potvor,
         # (mod_momtum.F90:664-712 min/max setup, :765-812 fluxes)
         uh_min, uh_max, vh_min, vh_max = enedis_fluxes(grid, dp_m, utotm,
                                                        vtotm, uflux0, vflux0)
-        t1u = _upw(jp1(potvor), utotm, jp1(vh_max) + im1(jp1(vh_max)),
-                   jp1(vh_min) + im1(jp1(vh_min)), False)
+        t1u = _upw(jp1q(potvor), utotm, jp1vv(vh_max) + im1(jp1vv(vh_max)),
+                   jp1vv(vh_min) + im1(jp1vv(vh_min)), False)
         t2u = _upw(potvor, utotm, vh_max + im1(vh_max),
                    vh_min + im1(vh_min), False)
         cau = .25 * (t1u + t2u) * iu
@@ -231,6 +234,11 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
     (mod_momtum.F90:388-1152)."""
     iu, iv, iq = grid.iu, grid.iv, grid.iq
     im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
+    jp1q = lambda a: grid.jp1(a, 'q')           # noqa: E731
+    jp1u = lambda a: grid.jp1(a, 'u')           # noqa: E731
+    jp1v = lambda a: grid.jp1(a, 'v')           # noqa: E731
+    jp1uv = lambda a: grid.jp1(a, 'u', True)    # noqa: E731
+    jp1vv = lambda a: grid.jp1(a, 'v', True)    # noqa: E731
 
     cutoff = onem
     thkbop = thkbot * onem
@@ -260,10 +268,10 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
     dpu_col = f.pu_hi
     wgtja = clip01((dpu_col - jm1(d2.pbu_m))
                    / maxc(dpu_col - f.pu_lo, epsilp))
-    wgtjb = clip01((dpu_col - jp1(d2.pbu_m))
+    wgtjb = clip01((dpu_col - jp1u(d2.pbu_m))
                    / maxc(dpu_col - f.pu_lo, epsilp))
     uja = (1. - wgtja) * jm1(utotn) + wgtja * slip * utotn
-    ujb = (1. - wgtjb) * jp1(utotn) + wgtjb * slip * utotn
+    ujb = (1. - wgtjb) * jp1uv(utotn) + wgtjb * slip * utotn
     dl2u = (utotn - .25 * (ip1(utotn) + im1(utotn) + uja + ujb)) * iu
 
     dpv_col = f.pv_hi
@@ -273,14 +281,14 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
                    / maxc(dpv_col - f.pv_lo, epsilp))
     via = (1. - wgtia) * im1(vtotn) + wgtia * slip * vtotn
     vib = (1. - wgtib) * ip1(vtotn) + wgtib * slip * vtotn
-    dl2v = (vtotn - .25 * (jp1(vtotn) + jm1(vtotn) + via + vib)) * iv
+    dl2v = (vtotn - .25 * (jp1vv(vtotn) + jm1(vtotn) + via + vib)) * iv
 
     # ---- vorticity / potential vorticity at q (mod_momtum.F90:473-575)
     potvor = potvor_field(grid, dp_m, utotm, vtotm)
 
     # ---- deformation fields (mod_momtum.F90:537-584)
     defor1 = ((ip1(utotn * grid.scuy) - utotn * grid.scuy)
-              - (jp1(vtotn * grid.scvx) - vtotn * grid.scvx)) ** 2 \
+              - (jp1vv(vtotn * grid.scvx) - vtotn * grid.scvx)) ** 2 \
         * grid.scp2i
     Vn = vtotn * grid.scvy
     Un = utotn * grid.scux
@@ -295,13 +303,13 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
 
     # sidewall-aware del2 neighbours (mod_momtum.F90:586-607)
     dl2uja = (1. - wgtja) * jm1(dl2u) + wgtja * slip * dl2u
-    dl2ujb = (1. - wgtjb) * jp1(dl2u) + wgtjb * slip * dl2u
+    dl2ujb = (1. - wgtjb) * jp1uv(dl2u) + wgtjb * slip * dl2u
     dl2via = (1. - wgtia) * im1(dl2v) + wgtia * slip * dl2v
     dl2vib = (1. - wgtib) * ip1(dl2v) + wgtib * slip * dl2v
 
     # ---- Arakawa kinetic energy (mod_momtum.F90:609-663)
     ke = .25 * (grid.scu2 * utotm ** 2 + ip1(grid.scu2 * utotm ** 2)
-                + grid.scv2 * vtotm ** 2 + jp1(grid.scv2 * vtotm ** 2)) \
+                + grid.scv2 * vtotm ** 2 + jp1v(grid.scv2 * vtotm ** 2)) \
         * grid.scp2i
 
     # ---- Coriolis advection terms (mod_momtum.F90:719-784)
@@ -311,7 +319,8 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
     # ================= u equation =================
     # deformation-dependent viscosity at u (mod_momtum.F90:790-804)
     qw = .5 * (im1(difwgt) + difwgt)
-    deform_u = torch.sqrt(.5 * (defor1 + im1(defor1) + defor2 + jp1(defor2)))
+    deform_u = torch.sqrt(.5 * (defor1 + im1(defor1) + defor2
+                                + jp1q(defor2)))
     vsc2u = torch.maximum(qw * par.mdv2hi + (1. - qw) * par.mdv2lo,
                           (qw * par.vsc2hi + (1. - qw) * par.vsc2lo)
                           * deform_u)
@@ -338,21 +347,21 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
     # lateral momentum flux at q-points (mod_momtum.F90:838-915)
     dpja = maxc(jm1(dpu_m), onemm)
     dpja = dpja + wgtja * (dpxy_u - dpja)
-    dpjb = maxc(jp1(dpu_m), onemm)
+    dpjb = maxc(jp1u(dpu_m), onemm)
     dpjb = dpjb + wgtjb * (dpxy_u - dpjb)
     vsc2a = torch.where(jm1(iu) > 0, jm1(vsc2u), vsc2u)
     vsc4a = torch.where(jm1(iu) > 0, jm1(vsc4u), vsc4u)
-    vsc2b = torch.where(jp1(iu) > 0, jp1(vsc2u), vsc2u)
-    vsc4b = torch.where(jp1(iu) > 0, jp1(vsc4u), vsc4u)
+    vsc2b = torch.where(jp1u(iu) > 0, jp1u(vsc2u), vsc2u)
+    vsc4b = torch.where(jp1u(iu) > 0, jp1u(vsc4u), vsc4u)
     uflux2 = (torch.minimum(grid.difmxq, (vsc2u + vsc2a) * grid.scqx)
               * _hfharm(dpja, dpxy_u) * (uja - utotn)
               + torch.minimum(.125 * grid.difmxq,
                               (vsc4u + vsc4a) * grid.scqx)
               * _hfharm(dpja, dpxy_u) * (dl2uja - dl2u)) * iu
-    uflux3 = (torch.minimum(jp1(grid.difmxq),
-                            (vsc2u + vsc2b) * jp1(grid.scqx))
+    uflux3 = (torch.minimum(jp1q(grid.difmxq),
+                            (vsc2u + vsc2b) * jp1q(grid.scqx))
               * _hfharm(dpjb, dpxy_u) * (utotn - ujb)
-              + torch.minimum(.125 * jp1(grid.difmxq),
+              + torch.minimum(.125 * jp1q(grid.difmxq),
                               (vsc4u + vsc4b) * jp1(grid.scqx))
               * _hfharm(dpjb, dpxy_u) * (dl2u - dl2ujb)) * iu
 
@@ -385,19 +394,19 @@ def _uv_body(grid: Grid, par: MomtumParams, f: MomtumKIn, d2: Momtum2DIn,
                           (qw * par.vsc4hi + (1. - qw) * par.vsc4lo)
                           * deform_v)
 
-    vsc2v_a = torch.where(iv > 0, vsc2v, jp1(vsc2v))
-    vsc2v_b = torch.where(jp1(iv) > 0, jp1(vsc2v), vsc2v)
-    vsc4v_a = torch.where(iv > 0, vsc4v, jp1(vsc4v))
-    vsc4v_b = torch.where(jp1(iv) > 0, jp1(vsc4v), vsc4v)
+    vsc2v_a = torch.where(iv > 0, vsc2v, jp1v(vsc2v))
+    vsc2v_b = torch.where(jp1v(iv) > 0, jp1v(vsc2v), vsc2v)
+    vsc4v_a = torch.where(iv > 0, vsc4v, jp1v(vsc4v))
+    vsc4v_b = torch.where(jp1v(iv) > 0, jp1v(vsc4v), vsc4v)
     dpxy_v = maxc(dpv_m, onemm)
-    dpjb_v = maxc(jp1(dpv_m), onemm)
+    dpjb_v = maxc(jp1v(dpv_m), onemm)
     harm_pv = _hfharm(dpxy_v, dpjb_v)
     vflux1 = torch.where(
-        (iv + jp1(iv)) > 0,
+        (iv + jp1v(iv)) > 0,
         torch.minimum(grid.difmxp, (vsc2v_a + vsc2v_b) * grid.scpx)
-        * harm_pv * (vtotn - jp1(vtotn))
+        * harm_pv * (vtotn - jp1vv(vtotn))
         + torch.minimum(.125 * grid.difmxp, (vsc4v_a + vsc4v_b) * grid.scpx)
-        * harm_pv * (dl2v - jp1(dl2v)),
+        * harm_pv * (dl2v - jp1vv(dl2v)),
         torch.zeros_like(vtotn))
 
     dpia = maxc(im1(dpv_m), onemm)
@@ -462,7 +471,8 @@ def momtum(grid: Grid, s: State, forcing: Forcing, par: MomtumParams,
     stress acts on the top layer over the mixed layer's upper part."""
     kk = grid.kk
     ip, iu, iv = grid.ip, grid.iu, grid.iv
-    im1, ip1, jm1, jp1 = grid.im1, grid.ip1, grid.jm1, grid.jp1
+    im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
+    jp1vv = lambda a: grid.jp1(a, 'v', True)    # noqa: E731
 
     thkbop = thkbot * onem
     tsfac = dlt / delt1
@@ -485,12 +495,12 @@ def momtum(grid: Grid, s: State, forcing: Forcing, par: MomtumParams,
     pbotl = torch.maximum(p[1:], pbot - thkbop)
     ptopl = torch.maximum(p[:-1], pbot - thkbop)
     ubot_bl = torch.sum((u_n + ip1(u_n)) * (pbotl - ptopl), 0)
-    vbot_bl = torch.sum((v_n + jp1(v_n)) * (pbotl - ptopl), 0)
+    vbot_bl = torch.sum((v_n + jp1vv(v_n)) * (pbotl - ptopl), 0)
 
     ubs = s.ubflxs_p[n] / torch.clamp(s.pbu[n] * grid.scuy, min=epsilpl)
     vbs = s.vbflxs_p[n] / torch.clamp(s.pbv[n] * grid.scvx, min=epsilpl)
     ubot = (ubs + ip1(ubs)) * tsfac + ubot_bl / thkbop
-    vbot = (vbs + jp1(vbs)) * tsfac + vbot_bl / thkbop
+    vbot = (vbs + jp1vv(vbs)) * tsfac + vbot_bl / thkbop
     ubbl = .5 * torch.sqrt(ubot * ubot + vbot * vbot)
     qdrag = par.cb * (ubbl + par.cbar)
     drag = qdrag * grav / (alpha0 * thkbop) * ip

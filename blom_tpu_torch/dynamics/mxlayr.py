@@ -89,8 +89,8 @@ def _bg2(grid: Grid, e: eos.EosParams, s: State, n: int):
     u2p = grid.ip1(u2)
     nu = grid.iu + grid.ip1(grid.iu)
     gx = torch.where(nu > 1.5, .5 * (u2 + u2p), u2 + u2p)
-    v2p = grid.jp1(v2)
-    nv = grid.iv + grid.jp1(grid.iv)
+    v2p = grid.jp1(v2, 'v', True)
+    nv = grid.iv + grid.jp1(grid.iv, 'v', True)
     gy = torch.where(nv > 1.5, .5 * (v2 + v2p), v2 + v2p)
     return (gx + gy + slbg0) * grid.ip
 
@@ -176,7 +176,7 @@ def mxlayr(grid: Grid, e: eos.EosParams, s: State, forcing: Forcing,
     bflpsw = grav * alpha0 * alfa * swfc2 * forcing.sswflx * cpi
 
     taux_p = .5 * (forcing.taux + grid.ip1(forcing.taux))
-    tauy_p = .5 * (forcing.tauy + grid.jp1(forcing.tauy))
+    tauy_p = .5 * (forcing.tauy + grid.jp1(forcing.tauy, 'v', True))
     ustar = torch.sqrt(torch.sqrt(_sq(taux_p) + _sq(tauy_p)) / 1000.)
     ustar3 = ustar * _sq(ustar)
 
@@ -257,7 +257,8 @@ def mxlayr(grid: Grid, e: eos.EosParams, s: State, forcing: Forcing,
         uu, vv = s.u[n][k], s.v[n][k]
         du, dv = s.dpu[n][k], s.dpv[n][k]
         return (uu * du + grid.ip1(uu * du), du + grid.ip1(du),
-                vv * dv + grid.jp1(vv * dv), dv + grid.jp1(dv))
+                vv * dv + grid.jp1(vv * dv, 'v', True),
+                dv + grid.jp1(dv, 'v', True))
 
     def uv_mean(un, ud, vn, vd):
         return (un / torch.clamp(ud, min=onecm),

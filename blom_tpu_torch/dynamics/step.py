@@ -10,8 +10,9 @@ tracers and momentum, barotp, pbcor2 and tmsmt2.  The isopycnic
 (isopyc_bulkml) step: no regrid, the isopycnic GM (eddtra_isopyc) when
 egc > 0, the mixed-layer wind stress in momtum, then convec, the
 diapycnal mixing (diapfl) with the CVMix-lite diffusivity and the bulk
-mixed layer (mxlayr) in place of the implicit vertical diffusion.  On
-either coordinate the tracers' source terms follow the vertical physics:
+mixed layer (mxlayr) in place of the implicit vertical diffusion.  On a
+tripolar grid the step ends with the fold's top-row sync (sync_state).
+On either coordinate the tracers' source terms follow the vertical physics:
 the ideal age (idlage_step) and the BGC chain (hamocc_step).  Each
 phase runs under blom_tpu's guard.  `check_supported` raises
 NotImplementedError naming every option the port does not run (see
@@ -100,10 +101,9 @@ def check_supported(grid: Grid, par: StepParams):
     port does not run: the direct regrid and reconstructions other than
     PPM, KPP and tidal mixing, neutral diffusion, other advection
     schemes, the BGC carbon isotopes (ciso) and extension tracers, the
-    TKE/GLS tracers, surface restoring and tripolar grids.  On the
-    isopycnic path the message says so; that path runs no regrid and
-    diffuses along layers whatever ltedtp says, as blom_tpu's step
-    does."""
+    TKE/GLS tracers and surface restoring.  On the isopycnic path the
+    message says so; that path runs no regrid and diffuses along layers
+    whatever ltedtp says, as blom_tpu's step does."""
     missing = []
     if par.ale is not None and not par.vcoord_isopyc:
         missing += unported_ale(par.ale)
@@ -123,8 +123,6 @@ def check_supported(grid: Grid, par: StepParams):
     if par.thermf is not None and (par.thermf.trxday > 0.
                                    or par.thermf.srxday > 0.):
         missing.append('surface restoring (par.thermf)')
-    if grid.arctic:
-        missing.append('tripolar grid')
     if missing:
         where = ' (isopycnic coordinate)' if par.vcoord_isopyc else ''
         raise NotImplementedError(f'not ported to blom_tpu_torch{where}: '
@@ -252,6 +250,15 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     s = pbcor2(grid, e, s, m, n, dlt)
     _mark('tmsmt2')
     s = tmsmt2(grid, s, m, n, isopyc)
+
+    if grid.arctic:
+        # enforce the fold-duplicated top-row degrees of freedom (the
+        # role of the reference's xctilr fold writes on tripolar grids,
+        # mod_xc.F90:2405-2700); keeps mirrored copies bit-identical
+        # against roundoff-order drift
+        _mark('arctic_sync')
+        from ..parallel.arctic import sync_state
+        s = sync_state(s)
     _mark('end')
     return s, dfl
 

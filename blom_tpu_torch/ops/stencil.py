@@ -47,3 +47,14 @@ def jm1(a, periodic_j: bool):
 def jp1(a, periodic_j: bool):
     """a at (i, j+1)."""
     return _shift(a, AXIS_J, +1, periodic_j)
+
+
+def shift(a, di: int = 0, dj: int = 0, periodic_i: bool = False,
+          periodic_j: bool = False):
+    """a at (i+di, j+dj)."""
+    out = a
+    if di:
+        out = _shift(out, AXIS_I, di, periodic_i)
+    if dj:
+        out = _shift(out, AXIS_J, dj, periodic_j)
+    return out

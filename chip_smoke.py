@@ -16,6 +16,7 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    has a stack frame or spills;
 3. kernels: each kernel in each variant against its plain PyTorch
    version on the card, at the main path's shapes (kk=53, J=360, I=384;
+   the momentum core also on a tripolar grid, its fold pre-pass first;
    two CPPM tracers, and the main variant also at NT_CHECK's 0, 1 and 3
    on both axes; the ALE remap with ntr 0 and 5, and 37 for the main
    path's limiters: many chunks of fields, beyond any fixed cap on the
@@ -84,10 +85,30 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    every (kernel, instantiation) per step, seconds per step and
    grid-points/s; for the channel then one f64 step of each time-level
    parity at 24x32x10 on the card against the CPU (gated);
-9. the kernels summary line (with the tracer counts each kernel met)
-   and the script's total seconds, then the device line last.  It fails
-   if a variant of a kernel launched on none of the paths (fuk95, the
-   core, the isopycnic path, the tracer paths, the decks).
+9. tripolar: the synthetic tripolar grid (the Arctic bipolar fold,
+   NOINYARCTIC) through build_tripolar at 384x360x53 in f32, 10 timed
+   steps after 2: finite fields, the mass of the physical rows (all but
+   the fold's duplicated top row) drifting by at most 1e-5, salinity
+   near 35 (SALN_DEV_ALE), transport across the seam, launches per step
+   (CPPM 2, momentum 1 and its fold pre-pass 1, K1 1, K2 1), host syncs
+   no more than the main path's, s/step, grid-points/s and the device
+   time of each phase (the fold's sync among them); tripolar_kernels:
+   the CPPM sweep's inputs on both axes (the j-sweep's 363 rows, three
+   of them fold ghosts) and the momentum core's from one step of the
+   warmed-up run, each kernel against its plain version in f32 and in
+   f64, timed beside its plain version and its bound;
+   tripolar_symmetry: 4 steps at SYMMETRY_SIZE with the port's
+   end-of-step fold sync replaced by the identity, the asymmetry of
+   every field of STATE_KINDS within SYMMETRY_FACTOR times blom_tpu's
+   own f32 asymmetry, run op by op (tripolar_symmetry_reference.py), or
+   SYMMETRY_ULPS ulps of the field's largest magnitude; tripolar_parity:
+   one f64 step of each time-level parity at 16x12x6 from a state three
+   steps in, card against CPU;
+10. the kernels summary line (with the tracer counts each kernel met and
+   its tripolar inputs) and the script's total seconds, then the device
+   line last.  It fails if a variant of a kernel launched on none of the
+   paths (fuk95, the core, the isopycnic path, the tracer paths, the
+   decks, the tripolar grid).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -217,8 +238,8 @@ def card_line():
     return out[0]
 
 
-KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_uv_kernel', 'ale_regrid_kernel',
-                'ale_remap_kernel')
+KERNEL_NAMES = ('cppm_sweep_kernel', 'momtum_uv_kernel', 'momtum_fold_kernel',
+                'ale_regrid_kernel', 'ale_remap_kernel')
 
 
 def short_name(mangled):
@@ -350,20 +371,23 @@ def cppm_inputs(ax, periodic, dtype, dev, nt=NT):
 TMC_ROWS = (0, 12, 9, 9, 6, 6, 6, 0, 0)
 
 
-def cppm_bytes(dtype, has_div, compat, lim, stencil, nt=NT, n3_planes=0):
+def cppm_bytes(dtype, has_div, compat, lim, stencil, nt=NT, n3_planes=0,
+               shape=(KK, JJ, II)):
     """Bytes the sweep in variant (compat, lim) must move: each 3-D input
     and output once, and the planes it reads: db, ai, hevc (4), ssc, scc,
     d2m (non-oscillatory only) and, with full compatibility, the int32
     stencil class and the tmc rows of each cell's class in `stencil`;
-    `n3_planes` of db and ai given as 3-D fields instead."""
+    `n3_planes` of db and ai given as 3-D fields instead; `shape` the
+    (kk, J, I) of the sweep's fields."""
     import torch
+    kk, jj, ii = shape
     es = torch.finfo(dtype).bits // 8
     n3 = 4 + int(has_div) + nt + 2 + 2 * nt + n3_planes   # in + out, 3-D
     n2 = 2 - n3_planes + 4 + 2 + int(lim == 'non_oscillatory')
-    nbytes = es * (n3 * KK * JJ * II + n2 * JJ * II)
+    nbytes = es * (n3 * kk * jj * ii + n2 * jj * ii)
     if compat == 'full':
         rows = torch.tensor(TMC_ROWS)[stencil.long().cpu()].sum()
-        nbytes += 4 * JJ * II + es * 3 * int(rows)
+        nbytes += 4 * jj * ii + es * 3 * int(rows)
     return nbytes
 
 
@@ -461,7 +485,10 @@ def check_cppm(dev, results):
     return ok_all
 
 
-def momtum_inputs(periodic_i, dtype, dev):
+def momtum_inputs(periodic_i, dtype, dev, arctic=False):
+    """Random land (a tenth), fields and fluxes on a grid periodic in j,
+    or with `arctic` on a tripolar one: closed in j, walled in the south,
+    the top row on the fold."""
     import numpy as np
     import torch
     from blom_tpu_torch.core.grid import finish_grid
@@ -470,6 +497,8 @@ def momtum_inputs(periodic_i, dtype, dev):
     depths = np.where(rng.uniform(size=(JJ, II)) < .9, 200., 0.)
     if not periodic_i:
         depths[:, 0] = depths[:, -1] = 0.
+    if arctic:
+        depths[0] = 0.
     ones = np.ones((JJ, II))
     gs = 650.
     grid = finish_grid(
@@ -477,8 +506,8 @@ def momtum_inputs(periodic_i, dtype, dev):
         scvx=ones * gs, scvy=ones * gs, scqx=ones * gs, scqy=ones * gs,
         plon=ones, plat=ones * 45., depths=depths,
         corioq=ones * 1e-4, coriop=ones * 1e-4, betafp=ones * 1e-11,
-        periodic_i=periodic_i, periodic_j=True, kk=KK, baclin=180.,
-        dtype=dtype, device=dev)
+        periodic_i=periodic_i, periodic_j=not arctic, kk=KK, baclin=180.,
+        arctic=arctic, dtype=dtype, device=dev)
     ip, iu, iv = (g.cpu().double().numpy() for g in (grid.ip, grid.iu,
                                                      grid.iv))
     H3, H2 = (KK, JJ, II), (JJ, II)
@@ -517,6 +546,8 @@ def momtum_inputs(periodic_i, dtype, dev):
 
 
 def momtum_bytes(dtype):
+    """Bytes the momentum core must move: 17 (k, j, i) inputs, 12 (j, i)
+    inputs and 21 grid planes read and u_new, v_new written."""
     import torch
     es = torch.finfo(dtype).bits // 8
     return es * ((17 + 2) * KK * JJ * II + (12 + 21) * JJ * II)
@@ -524,16 +555,20 @@ def momtum_bytes(dtype):
 
 def profiler_ms(call, kernel, reps=5):
     """Device milliseconds per call of the kernels whose name holds
-    `kernel`, from torch.profiler (None if it sees no device time)."""
+    `kernel`, from torch.profiler (None if it sees no device time); with
+    a tuple of names, {name: ms} from one profiled run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.key_averages()
-                if kernel in ev.key)
-    return total / 1e3 / reps if total > 0 else None
+    events = prof.key_averages()
+    out = {}
+    for name in (kernel if isinstance(kernel, tuple) else (kernel,)):
+        total = sum(ev.device_time_total for ev in events if name in ev.key)
+        out[name] = total / 1e3 / reps if total > 0 else None
+    return out if isinstance(kernel, tuple) else out[kernel]
 
 
 def momentum_smem():
@@ -589,13 +624,17 @@ def cppm_smem():
 
 
 def check_momtum(dev, results):
+    """The momentum core in each scheme, closed and periodic in i, and
+    periodic in i on a tripolar grid (the fold pre-pass, then the main
+    kernel), in f64 and f32; timed closed in i (the main path's grid)."""
     import torch
     from blom_tpu_torch.dynamics import momtum, momtum_cuda
     tsfac, delt1 = 6. / 360., 360.
     ok_all = True
     for dtype in (torch.float64, torch.float32):
-        for periodic_i in (False, True):
-            grid, f, d2 = momtum_inputs(periodic_i, dtype, dev)
+        for periodic_i, arctic in ((False, False), (True, False),
+                                   (True, True)):
+            grid, f, d2 = momtum_inputs(periodic_i, dtype, dev, arctic)
             for mommth in momtum.MOMMTHS:
                 # the main path's parameters with each scheme, plus nonzero
                 # biharmonic and background viscosities so that every term
@@ -609,7 +648,8 @@ def check_momtum(dev, results):
                 ok, eabs, erel = compare(out, ref, dtype)
                 rec = dict(kernel='momtum_uv', variant=mommth,
                            dtype=str(dtype)[6:], periodic_i=periodic_i,
-                           ok=ok, max_abs_err=eabs, max_rel_err=erel)
+                           arctic=arctic, ok=ok, max_abs_err=eabs,
+                           max_rel_err=erel)
                 if dtype == torch.float32 and not periodic_i:
                     def call():
                         return momtum_cuda.momtum_uv_cuda(grid, par, f, d2,
@@ -815,6 +855,7 @@ def _counts():
     from blom_tpu_torch.dynamics import ale_cuda, cppm_cuda, momtum_cuda
     return {'cppm_sweep': cppm_cuda.launches,
             'momtum_uv': momtum_cuda.launches,
+            'momtum_fold': momtum_cuda.fold_launches,
             'ale_regrid': ale_cuda.regrid_launches,
             'ale_remap': ale_cuda.remap_launches}
 
@@ -875,13 +916,15 @@ def zero_counters():
     eddtra.host_syncs = 0
 
 
-def expected_launches(par):
+def expected_launches(par, arctic=False):
     """{kernel: {instantiation: launches per step}} of a step with `par`:
-    two CPPM sweeps, one momentum launch, one launch of each ALE kernel
-    when ALE is on; every other instantiation 0."""
+    two CPPM sweeps, one momentum launch and on a tripolar grid one of
+    its fold pre-pass, one launch of each ALE kernel when ALE is on;
+    every other instantiation 0."""
     out = {'cppm_sweep': {f'{par.cppm_compatibility}/{par.cppm_limiting}':
                           2},
            'momtum_uv': {par.momtum.mommth: 1},
+           'momtum_fold': {par.momtum.mommth: 1} if arctic else {},
            'ale_regrid': {}, 'ale_remap': {}}
     if par.ale is not None:
         out['ale_regrid'] = {par.ale.tracer_limiting: 1}
@@ -890,8 +933,8 @@ def expected_launches(par):
     return out
 
 
-def launches_ok(counts, par, nsteps):
-    exp = expected_launches(par)
+def launches_ok(counts, par, nsteps, arctic=False):
+    exp = expected_launches(par, arctic)
     return all(n == exp[k].get(v, 0) * nsteps
                for k, per in counts.items() if k in exp
                for v, n in per.items())
@@ -1502,6 +1545,259 @@ def run_tracers_parity(dev):
     return ok
 
 
+# -------------------------------------------------------------- tripolar
+
+NSTEPS_TRIPOLAR = (2, 10)           # warm-up, timed steps
+# The fold symmetry check: the port's run and blom_tpu's own f32 run on
+# the CPU (tripolar_symmetry_reference.py, 64-bit types off, op by op)
+# at this size, 4 steps with the end-of-step fold sync replaced by the
+# identity.  Each field of STATE_KINDS may be at most SYMMETRY_FACTOR
+# times as asymmetric as blom_tpu's, or SYMMETRY_ULPS f32 ulps of the
+# field's largest magnitude where that is more (blom_tpu's is 0 in most
+# fields).  blom_tpu compiled by XLA is 10^3-10^6 times as asymmetric:
+# its fusions contract multiplies and adds differently at a point and
+# at its mirror, which neither the port nor blom_tpu op by op does.
+SYMMETRY_SIZE = dict(itdm=384, jtdm=64, kdm=53)
+SYMMETRY_STEPS = 4
+SYMMETRY_FACTOR = 10.
+SYMMETRY_ULPS = 4.
+# blom_tpu's own f32 asymmetry of that run, by field
+# (tripolar_symmetry_reference.py on the CPU: 64-bit types off, op by op)
+SYMMETRY_REF = {
+    'dp': 0.0, 'temp': 0.0, 'saln': 0.0, 'sigma': 0.0, 'sealv': 0.0,
+    'pb': 0.0, 'pb_p': 0.0, 'pb_mn': 0.0, 'trc': 0.0, 'dpold': 0.0,
+    'told': 0.0, 'sold': 0.0, 'trcold': 0.0, 'sigmar': 0.0,
+    'ustarb': 3.637978807091713e-12, 'phi': 0.0, 'p': 0.0,
+    'u': 1.6370904631912708e-11, 'dpu': 0.0, 'dpuold': 0.0, 'pbu': 0.0,
+    'pbu_p': 0.0, 'pu': 0.0, 'ub': 7.275957614183426e-12, 'ubflx': 0.25,
+    'ubflx_mn': 0.125, 'ubflxs': 4.0, 'ubflxs_p': 8.0,
+    'ubcors_p': 2.2737367544323206e-13, 'uflx': 30.0, 'utflx': 352.0,
+    'usflx': 1088.0, 'cau': 0.0001220703125, 'pgfx': 0.0, 'pgfx_o': 0.0,
+    'pgfxm': 0.0, 'pgfxm_o': 0.0, 'v': 1.1368683772161603e-11, 'dpv': 0.0,
+    'dpvold': 0.0, 'pbv': 0.0, 'pbv_p': 0.0, 'pv': 0.0,
+    'vb': 1.1368683772161603e-13, 'vbflx': 0.001953125,
+    'vbflx_mn': 0.00390625, 'vbflxs': 0.125, 'vbflxs_p': 0.25,
+    'vbcors_p': 5.684341886080802e-14, 'vflx': 14.0, 'vtflx': 1344.0,
+    'vsflx': 2048.0, 'cav': 0.0001220703125, 'pgfy': 0.0, 'pgfy_o': 0.0,
+    'pgfym': 0.0, 'pgfym_o': 0.0, 'pvtrop': 1.3877787807814457e-17}
+PARITY_TRIPOLAR = dict(itdm=16, jtdm=12, kdm=6)
+
+
+def physical_mass(model, dp):
+    """Mass over the physical rows of a tripolar grid: all but the fold's
+    duplicated top row (tools/testsuite.py:81-86)."""
+    g = model.grid
+    return float((dp.double()[:, :-1].sum(0)
+                  * (g.scp2 * g.ip).double()[:-1]).sum())
+
+
+def run_tripolar(dev, paths, syncs, results):
+    """The tripolar grid at the main path's size in f32 through
+    build_tripolar and run: warm-up and timed steps, the gates, launches
+    and host syncs per step, s/step and grid-points/s, the device time of
+    each phase; then its kernels on their inputs from this run
+    (check_tripolar_kernels, records to `results`)."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    warm, nsteps = NSTEPS_TRIPOLAR
+    t0 = time.perf_counter()
+    model = standalone.build_tripolar(dtype=torch.float32, itdm=II,
+                                      jtdm=JJ, kdm=KK, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mass0 = physical_mass(model, model.state.dp[1])
+    s_warm, clock = standalone.run(model, warm)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    nsync = counts.pop('host_syncs')
+    paths['tripolar'] = counts
+    new = 1 if nsteps % 2 == 0 else 0
+    finite = all(bool(torch.isfinite(getattr(s, f)).all())
+                 for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
+    drift = (physical_mass(model, s.dp[new]) - mass0) / mass0
+    saln_dev = float(((s.saln[new] - 35.) * model.grid.ip).abs().max())
+    seam = float(s.vflx[:, :, -1, :].abs().max())
+    plain = syncs['fuk95']
+    ok = (finite and abs(drift) <= 1e-5 and saln_dev <= SALN_DEV_ALE
+          and seam > 0. and nsync / nsteps <= plain
+          and launches_ok(counts, model.par, nsteps, arctic=True))
+    emit('tripolar', shape=[KK, JJ, II], dtype='float32',
+         build_seconds=build_s, warmup_steps=warm, steps=nsteps, ok=ok,
+         finite=finite, rel_physical_mass_drift=drift,
+         max_saln_dev=saln_dev, max_abs_vflx_seam=seam,
+         max_abs_v=float(s.v.abs().max()), launches=counts,
+         host_syncs_per_step=nsync / nsteps,
+         plain_host_syncs_per_step=plain,
+         seconds_per_step=wall / nsteps,
+         gridpoints_per_s=II * JJ * KK * nsteps / wall)
+    profile_phases(model, 2, 'tripolar_phase_profile')
+    ok &= check_tripolar_kernels(model, s_warm, clock.delt1, results)
+    return ok
+
+
+def check_tripolar_kernels(model, s, delt1, results):
+    """The CPPM sweep on both axes (the j-sweep over the 363 rows of the
+    fold-extended domain) and the momentum core (fold pre-pass and main
+    kernel) on the inputs one tripolar step from state `s` gives them,
+    each against its plain version in f32 (F32_REL) and on the same
+    inputs cast to f64 (1e-12); the time of each call beside its plain
+    version's and its bound, and for the momentum core each kernel's own
+    device time from torch.profiler."""
+    import torch
+    from blom_tpu_torch.dynamics import cppm, cppm_cuda, momtum, momtum_cuda
+    calls = capture_kernel_inputs(model, s, delt1)
+    kernel = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
+              'momtum_uv': momtum_cuda.momtum_uv_cuda}
+
+    def plain(name, a, kw):
+        if name == 'momtum_uv':
+            return momtum._uv_body(*a)
+        return cppm._cppm_sweep_body(
+            *a, kw.get('div_corr'), kw['ax'], kw['compatibility'],
+            kw['limiting'])
+
+    ok_all = len(calls['cppm_sweep']) == 2 and len(calls['momtum_uv']) == 1
+    for name in ('cppm_sweep', 'momtum_uv'):
+        for a, kw in calls[name]:
+            if name == 'cppm_sweep':
+                shape = tuple(a[0].shape)
+                rec = dict(kernel=name, path='tripolar', ax=kw['ax'],
+                           shape=list(shape),
+                           variant=f"{kw['compatibility']}/"
+                                   f"{kw['limiting']}",
+                           div_corr=kw.get('div_corr') is not None)
+                dtype = a[0].dtype
+            else:
+                rec = dict(kernel=name, path='tripolar',
+                           variant=a[1].mommth, arctic=a[0].arctic)
+                dtype = a[2].u_m.dtype
+            ok = True
+            for tag, args, kwt in (
+                    ('f32', a, kw),
+                    ('f64', [_to_f64(x) for x in a],
+                     {k: _to_f64(v) for k, v in kw.items()})):
+                out = kernel[name](*args, **kwt)
+                ref = plain(name, args, kwt)
+                torch.cuda.synchronize()
+                o, e_abs, e_rel = compare(
+                    out, ref, torch.float64 if tag == 'f64' else dtype)
+                rec[f'{tag}_ok'], rec[f'{tag}_max_abs_err'] = o, e_abs
+                rec[f'{tag}_max_rel_err'] = e_rel
+                ok &= o
+            rec['ok'] = ok
+            rec['ms'] = time_ms(lambda: kernel[name](*a, **kw))
+            rec['plain_ms'] = time_ms(lambda: plain(name, a, kw), reps=5,
+                                      warm=1)
+            if name == 'cppm_sweep':
+                nbytes = cppm_bytes(
+                    dtype, rec['div_corr'], kw['compatibility'],
+                    kw['limiting'], a[7].stencil, a[1].shape[0],
+                    n3_planes=int(a[3].dim() == 3) + int(a[6].dim() == 3),
+                    shape=shape)
+                nops = cppm_ops_per_cell(a[1].shape[0]) * shape[0] \
+                    * shape[1] * shape[2]
+            else:
+                # the function's own bound, as on the main path: the
+                # fold pre-pass's ghost buffer and its recomputed stages
+                # are the design's cost, so they show as time over it
+                nbytes = momtum_bytes(dtype)
+                nops = MOMTUM_OPS_PER_POINT * KK * JJ * II
+
+                def call():
+                    return kernel[name](*a, **kw)
+                prof = profiler_ms(call, ('momtum_uv_kernel',
+                                          'momtum_fold_kernel'))
+                rec['profiler_ms'] = prof['momtum_uv_kernel']
+                rec['fold_profiler_ms'] = prof['momtum_fold_kernel']
+            rec['bound_ms'], rec['bound_by'] = bound(nbytes, nops)
+            emit('tripolar_kernels', **rec)
+            results.append(rec)
+            ok_all &= ok
+    return ok_all
+
+
+def fold_asymmetry(s):
+    """{field: max |arctic_sync(a) - a|} over the fields of STATE_KINDS."""
+    from blom_tpu_torch.parallel import arctic
+    return {name: float((arctic.arctic_sync(getattr(s, name), kind, vec)
+                         - getattr(s, name)).abs().max())
+            if getattr(s, name).numel() else 0.
+            for name, (kind, vec) in arctic.STATE_KINDS.items()}
+
+
+def run_tripolar_symmetry(dev):
+    """SYMMETRY_STEPS steps of build_tripolar at SYMMETRY_SIZE in f32 with
+    the end-of-step fold sync replaced by the identity: the fold reads of
+    the stencils alone must keep the state symmetric to rounding.  Each
+    field of STATE_KINDS within SYMMETRY_FACTOR times blom_tpu's own f32
+    asymmetry of the same run (SYMMETRY_REF) or SYMMETRY_ULPS f32 ulps of
+    the field's largest magnitude, whichever is larger."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.parallel import arctic
+    model = standalone.build_tripolar(dtype=torch.float32, device=dev,
+                                      **SYMMETRY_SIZE)
+    sync = arctic.sync_state
+    arctic.sync_state = lambda st: st
+    try:
+        s, _ = standalone.run(model, SYMMETRY_STEPS)
+    finally:
+        arctic.sync_state = sync
+    torch.cuda.synchronize()
+    err = fold_asymmetry(s)
+    eps = float(torch.finfo(torch.float32).eps)
+    limits = {}
+    for name in err:
+        a = getattr(s, name)
+        scale = float(a.abs().max()) if a.numel() else 0.
+        limits[name] = max(SYMMETRY_FACTOR * SYMMETRY_REF.get(name, 0.),
+                           SYMMETRY_ULPS * eps * scale)
+    bad = {k: (err[k], limits[k]) for k in err if err[k] > limits[k]}
+    ok = (bool(torch.isfinite(s.dp).all()) and not bad
+          and set(SYMMETRY_REF) == set(err)
+          and float(s.v.abs().max()) > 0.)
+    emit('tripolar_symmetry', ok=ok, size=SYMMETRY_SIZE,
+         steps=SYMMETRY_STEPS, factor=SYMMETRY_FACTOR, asymmetry=err,
+         blom_tpu_f32_asymmetry=SYMMETRY_REF, limits=limits,
+         over_limit=bad)
+    return ok
+
+
+def state_to(s, dev):
+    """A copy of State `s` on `dev`."""
+    import dataclasses
+    return type(s)(**{f.name: getattr(s, f.name).to(dev)
+                      for f in dataclasses.fields(s)})
+
+
+def run_tripolar_parity(dev):
+    """One f64 step of each time-level parity of the tripolar step at
+    PARITY_TRIPOLAR size, card against CPU, from the state the CPU reaches
+    in three steps (the fold rows carry flow), within STEP_REL."""
+    import dataclasses
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    cpu = standalone.build_tripolar(dtype=torch.float64, device='cpu',
+                                    **PARITY_TRIPOLAR)
+    s, _ = standalone.run(cpu, 3)
+    models = {'cpu': dataclasses.replace(cpu, state=s)}
+    card = standalone.build_tripolar(dtype=torch.float64, device=dev,
+                                     **PARITY_TRIPOLAR)
+    card.dfl = type(cpu.dfl)(**{f.name: getattr(cpu.dfl, f.name).to(dev)
+                                for f in dataclasses.fields(cpu.dfl)})
+    models[dev] = dataclasses.replace(card, state=state_to(s, dev))
+    one_step = one_step_parity(models, dev)
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('tripolar_parity', ok=ok, tolerance=STEP_REL,
+         size=PARITY_TRIPOLAR, from_step=3, one_step=one_step)
+    return ok
+
+
 # ------------------------------------------------------------------ decks
 
 def deck_path(name, dtype, expcnf):
@@ -1603,7 +1899,7 @@ def run_deck(dev, name, expcnf, paths):
     return ok and pok
 
 
-def kernel_summary(results, paths, tracer_results):
+def kernel_summary(results, paths, tracer_results, tripolar_results):
     """The kernels line: one entry per kernel, with its variants.  A
     kernel's `launches` is the sum of its wrapper's counts on every path.
     A variant's `launches` are per path.  K2's variants are its three
@@ -1615,7 +1911,9 @@ def kernel_summary(results, paths, tracer_results):
     those checked against its plain version, each path's launches by the
     count they carried in its run ({count: launches}, observe_carried),
     and the tracer paths' own inputs with their times
-    (tracer_results)."""
+    (tracer_results).  `tripolar` holds the kernel's checks and times on
+    the tripolar path's inputs (tripolar_results); the momentum core's
+    entry also gives its fold pre-pass's launches per path."""
     from blom_tpu_torch.dynamics.ale import LIMITERS
     from blom_tpu_torch.dynamics.momtum import MOMMTHS
     out = []
@@ -1675,6 +1973,16 @@ def kernel_summary(results, paths, tracer_results):
                     'path', key, 'ax', 'variant', 'n_cells_dp_zero', 'ok',
                     'f32_max_abs_err', 'f64_max_abs_err', 'ms', 'plain_ms',
                     'bound_ms', 'bound_by') if k in r} for r in trecs]}
+        trip = [r for r in tripolar_results if r['kernel'] == name]
+        if trip:
+            entry['tripolar'] = [{k: r[k] for k in (
+                'ax', 'shape', 'variant', 'ok', 'f32_max_abs_err',
+                'f64_max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'profiler_ms', 'fold_profiler_ms') if k in r} for r in trip]
+        if name == 'momtum_uv':
+            entry['fold_prepass_launches'] = {
+                p: c['momtum_fold'] for p, c in paths.items()
+                if any(c['momtum_fold'].values())}
         if name in ALE_KERNELS:
             entry['dynamic_smem'] = ale_smem(name)
         if name == 'ale_remap':
@@ -1725,7 +2033,7 @@ def main():
                        'momtum_uv': momentum_smem(),
                        **{k: ale_smem(k) for k in ALE_KERNELS}})
 
-    results, tracer_results = [], []
+    results, tracer_results, tripolar_results = [], [], []
     ok = all(frames.values())
     ok &= check_cppm(dev, results)
     ok &= check_momtum(dev, results)
@@ -1739,11 +2047,15 @@ def main():
     ok &= run_tracers(dev, paths, syncs, tracer_results)
     ok &= run_tracers(dev, paths, syncs, tracer_results, isopyc=True)
     ok &= run_tracers_parity(dev)
+    ok &= run_tripolar(dev, paths, syncs, tripolar_results)
+    ok &= run_tripolar_symmetry(dev)
+    ok &= run_tripolar_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)
 
-    kernels = kernel_summary(results, paths, tracer_results)
+    kernels = kernel_summary(results, paths, tracer_results,
+                             tripolar_results)
     print(json.dumps({'kernels': kernels}), flush=True)
     emit('total', seconds=time.perf_counter() - t_start)
     unlaunched = [f"{k['name']}:{v['name']}" for k in kernels

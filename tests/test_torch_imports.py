@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch/CUDA port.
 
-blom_tpu_torch, chip_smoke.py, momtum_variants.py, ale_variants.py and
-cppm_variants.py import neither JAX nor anything of blom_tpu (note that the name
+blom_tpu_torch, chip_smoke.py, momtum_variants.py, ale_variants.py,
+cppm_variants.py and step_ab.py import neither JAX nor anything of
+blom_tpu (note that the name
 blom_tpu_torch itself begins with "blom_tpu", so module names are
 matched exactly), and importing every module of the package needs no
 CUDA toolkit."""
@@ -18,7 +19,8 @@ PACKAGE = REPO / 'blom_tpu_torch'
 FILES = sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py',
                                          REPO / 'momtum_variants.py',
                                          REPO / 'ale_variants.py',
-                                         REPO / 'cppm_variants.py']
+                                         REPO / 'cppm_variants.py',
+                                         REPO / 'step_ab.py']
 
 
 def _forbidden(name: str) -> bool:

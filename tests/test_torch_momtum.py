@@ -272,3 +272,110 @@ def test_uv_body_reach_within_kernel_halo(periodic_i, mommth):
                 assert max(far) <= momtum_cuda.HALO, (name, j, i, far)
                 reach = np.maximum(reach, far)
     assert tuple(reach) == (momtum_cuda.HALO, momtum_cuda.HALO)
+
+
+class _RecordingGrid(tmo.Grid):
+    """A grid that records every j+1 read: (kind, vector, field)."""
+
+    def jp1(self, a, kind=None, vector=False):
+        self.reads.append((kind, vector, a))
+        return super().jp1(a, kind, vector)
+
+
+def _tripolar_inputs(seed, n):
+    """_setup's random fields on an n x n grid closed in j and periodic in
+    i, carried across with convert.grid_from_numpy(arctic=True): the top
+    row on the fold."""
+    jgrid, f, d2 = _setup(seed=seed, kk=1, jj=n, ii=n, periodic_i=True,
+                          periodic_j=False)
+    tgrid = convert.grid_from_numpy(
+        {k: np.asarray(getattr(jgrid, k)) for k in TENSOR_FIELDS},
+        periodic_i=True, periodic_j=False, kk=jgrid.kk, arctic=True)
+    t = torch.from_numpy
+    return (tgrid,
+            tmo.MomtumKIn(**{k: t(np.ascontiguousarray(a))
+                             for k, a in f.items()}),
+            tmo.Momtum2DIn(**{k: t(np.ascontiguousarray(a))
+                              for k, a in d2.items()}))
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+def test_uv_body_reach_across_the_fold(mommth):
+    """The tripolar case of the reach above, for the kernel's fold
+    pre-pass.  (1) Every value a tagged j+1 read mirrors (rows J-3 of p
+    and u fields, J-2 of q and v fields) is the same when the grid has no
+    fold: no mirrored value itself reads across the fold, so the pre-pass
+    computes them from rows J-5..J-1 alone.  (2) An input perturbed at
+    two wet points (j, i) of each of the top six rows changes outputs
+    within HALO of it, or, through the fold, only on the top HALO rows at
+    columns within HALO of its mirror I-1-i, and only from rows within
+    HALO of the top row; the widest change through the fold seen reaches
+    HALO in both."""
+    from blom_tpu_torch.dynamics import momtum_cuda
+    torch.set_num_threads(1)
+    n, halo = 28, momtum_cuda.HALO
+    tgrid, tf, td2 = _tripolar_inputs(7, n)
+    par = tmo.MomtumParams(mommth=mommth, **PARAMS)
+    tsfac, delt1 = 0.75, 3600.
+
+    def body(grid, kin, d2in):
+        return torch.stack(tmo._uv_body(grid, par, kin, d2in, tsfac, delt1))
+
+    # (1) the mirrored rows without the fold
+    runs = []
+    for arctic in (True, False):
+        grid = _RecordingGrid(**{**tgrid.__dict__, 'arctic': arctic})
+        grid.reads = []
+        body(grid, tf, td2)
+        runs.append(grid.reads)
+    tagged = [(a, b) for (kind, vec, a), (_, _, b) in zip(*runs) if kind]
+    assert len(runs[0]) == len(runs[1]) and len(tagged) >= 25
+    for (kind, vec, a), (_, _, b) in zip(*runs):
+        if kind:
+            row = n - (3 if kind in 'pu' else 2)
+            assert torch.equal(a[..., row, :], b[..., row, :]), kind
+
+    # (2) the reach through the fold
+    base = body(tgrid, tf, td2)
+    rng = np.random.default_rng(8)
+    ip = np.asarray(tgrid.ip)
+    wet = np.argwhere(ip[n - 6:] > 0) + [n - 6, 0]
+    jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing='ij')
+
+    def cyclic(d):
+        d = np.abs(d)
+        return np.minimum(d, n - d)
+
+    def perturbed(t, j, i):
+        t = t.clone()
+        t[..., j, i] += 1e-3 * (t[..., j, i].abs() + t.abs().mean())
+        return t
+
+    fields = ([('kin', name) for name in tmo.MomtumKIn._fields]
+              + [('d2', name) for name in tmo.Momtum2DIn._fields]
+              + [('grid', name) for name in momtum_cuda.METRICS])
+    reach = np.zeros(2, int)
+    for kind, name in fields:
+        # two wet points of each of the top six rows
+        pts = [wet[wet[:, 0] == r][k] for r in range(n - 6, n)
+               for k in rng.choice((wet[:, 0] == r).sum(), 2, replace=False)]
+        for j, i in pts:
+            kin, d2in, grid = tf, td2, tgrid
+            if kind == 'kin':
+                kin = tf._replace(**{name: perturbed(getattr(tf, name), j, i)})
+            elif kind == 'd2':
+                d2in = td2._replace(
+                    **{name: perturbed(getattr(td2, name), j, i)})
+            else:
+                grid = dataclasses.replace(
+                    tgrid, **{name: perturbed(getattr(tgrid, name), j, i)})
+            changed = (body(grid, kin, d2in) != base).any(0).any(0).numpy()
+            direct = (np.abs(jj - j) <= halo) & (cyclic(ii - i) <= halo)
+            fold = changed & ~direct
+            if fold.any():
+                rows = jj[fold]
+                far = (n - 1 - j, cyclic(ii[fold] - (n - 1 - i)).max())
+                assert rows.min() >= n - halo, (name, j, i)
+                assert max(far) <= halo, (name, j, i, far)
+                reach = np.maximum(reach, far)
+    assert tuple(reach) == (halo, halo)

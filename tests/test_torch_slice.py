@@ -313,17 +313,15 @@ FULL_PHASES = ('tmsmt1', 'ale', 'cmnfld', 'difest_lateral', 'eddtra',
                'pbcor2', 'tmsmt2')
 
 
-@pytest.fixture(scope='module')
-def full_snapshots(full_models):
-    """blom_tpu's inputs and outputs of every phase of the first two
-    full steps, run eagerly phase by phase.  Each entry: (m, n, delt1,
+def full_step_snapshots(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
+    """blom_tpu's inputs and outputs of every phase of one full step of
+    model `jm` per parity (m, n), from state `s` and diffusion fields
+    `dfl`, run eagerly phase by phase; on a tripolar grid the step ends
+    with the fold's sync ('arctic_sync').  Each entry: (m, n, delt1,
     (state, dfl, extra) before, output)."""
-    jm, _ = full_models
     g, e, par = jm.grid, jm.e, jm.par
-    s, dfl = jm.state, jm.dfl
     snaps = {}
-    for step, (m, n) in enumerate(((0, 1), (1, 0))):
-        d1 = jm.clock.delt1
+    for step, (m, n) in enumerate(parities):
         s = jstep.init_fluxes(s, m)
         snaps[(step, 'tmsmt1')] = (m, n, d1, (s, dfl, None),
                                    s := jt.tmsmt1(g, s, n))
@@ -364,7 +362,19 @@ def full_snapshots(full_models):
             jp.pbcor2(g, e, s, m, n, par.dlt)))
         snaps[(step, 'tmsmt2')] = (m, n, d1, (s, dfl, None), s := (
             jt.tmsmt2(g, s, m, n)))
+        if g.arctic:
+            from blom_tpu.parallel.arctic import sync_state
+            snaps[(step, 'arctic_sync')] = (m, n, d1, (s, dfl, None), s := (
+                sync_state(s)))
     return snaps
+
+
+@pytest.fixture(scope='module')
+def full_snapshots(full_models):
+    """blom_tpu's inputs and outputs of every phase of the first two
+    full steps, run eagerly phase by phase."""
+    jm, _ = full_models
+    return full_step_snapshots(jm, jm.state, jm.dfl, jm.clock.delt1)
 
 
 def _full_port_phase(tm, name, m, n, d1, s, dfl, extra):
