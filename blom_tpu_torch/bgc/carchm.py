@@ -2,10 +2,11 @@
 calcite dissolution.
 
 Counterpart of `blom_tpu/bgc/carchm.py` (BLOM's hamocc/mo_carchm.F90
-carchm), base configuration (CO2/O2/N2/N2O/DMS gas exchange; no CFC,
-isotopes or natDIC).  The 3-D pH solve is one elementwise
-fixed-iteration call over the whole (K, J, I) block; the surface fluxes
-act on layer 0.
+carchm): CO2/O2/N2/N2O/DMS gas exchange, and with the carbon isotopes
+(ti, cp) their exchange, shell dissolution and decay (ciso.carchm_ciso);
+the CFCs and natDIC are in cfc.py and extensions.py.  The 3-D pH solve
+is one elementwise fixed-iteration call over the whole (K, J, I) block;
+the surface fluxes act on layer 0.
 """
 
 from __future__ import annotations
@@ -29,12 +30,9 @@ def carchm(oc, ptho, psao, prho, dz, ptiestu, lyr, kmle,
     [g/cm3]; dz [m]; ptiestu: layer-centre depth [m]; lyr: wet-layer
     mask; kmle: (J, I) int, last mixed-layer level index (0-based,
     inclusive); fu10: 10-m wind [m/s]; slp: sea-level pressure [Pa];
-    fice: sea-ice fraction.  Returns (oc, satoxy, diags).  The carbon
-    isotopes (ti, cp) are not ported."""
-    if ti is not None or cp is not None:
-        raise NotImplementedError(
-            'not ported to blom_tpu_torch: the carbon isotopes (ciso) '
-            'in carchm')
+    fice: sea-ice fraction; ti/cp: the extended tracer index and the
+    carbon-isotope parameters, both or neither.  Returns (oc, satoxy,
+    diags)."""
     oc = oc.clone()
     t = torch.clamp(ptho, chem.TEMP_MIN, chem.TEMP_MAX)
     s = torch.clamp(psao, chem.SALN_MIN, chem.SALN_MAX)
@@ -136,6 +134,14 @@ def carchm(oc, ptho, psao, prho, dz, ptiestu, lyr, kmle,
     oc[T.alkali] = oc[T.alkali] + 2. * dissol
     oc[T.sco212] = oc[T.sco212] + dissol
 
+    # ------------- carbon isotopes (use_cisonew) ---------------------
+    ciso_diags = {}
+    if ti is not None and cp is not None:
+        from . import ciso as ciso_mod
+        oc, ciso_diags = ciso_mod.carchm_ciso(
+            oc, ti, t0, tk0, s0, cu, cb, cc, Kh0_0, kwco2, rpp0, pH2O,
+            fc, rrho0, dz0, wet0, dissol, lyr, dtsec, p, cp)
+
     fco2 = cu[0] * 1.e6 / Kh0_0
     pco2 = fco2 / fc
     diags = {'co2flux': torch.where(wet0, fluxu - fluxd, 0.),
@@ -147,4 +153,5 @@ def carchm(oc, ptho, psao, prho, dz, ptiestu, lyr, kmle,
              'omegaC': torch.where(lyr, omegaC, 0.),
              'omegaA': torch.where(lyr, omegaA, 0.),
              'co3': torch.where(lyr, co3, 0.)}
+    diags.update(ciso_diags)
     return oc, satoxy, diags

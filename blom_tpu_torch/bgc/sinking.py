@@ -10,8 +10,8 @@ the sediment-bypass redistribution of the bottom fluxes are column sums.
 Layers thinner than dp_min_sink take the donor concentration and do not
 advance the donor (mo_vertical_fluxes.F90:196-210); the bottom flux
 leaves from the last thick layer at that layer's sinking speed.  The
-carbon-isotope sinkers that blom_tpu's `extra` argument adds ride with
-ciso, which is not ported.
+carbon-isotope pools sink as `extra` rows beside the four base sinkers,
+each at the speed of its class.
 """
 
 from __future__ import annotations
@@ -49,25 +49,38 @@ def _ksum(a):
     return col
 
 
-def sinking(oc, dz, ptiestu, omask, dtb, p: BgcParams):
+def sinking(oc, dz, ptiestu, omask, dtb, p: BgcParams, extra=()):
     """Advance sinking for one timestep.  Returns (oc, fluxes): fluxes
     holds prorca/prcaca/silpro/produs [kmol m-2/timestep] (zero where
     sedbypass redistributes them over the column) and the bottom carbon,
-    calcite and opal fluxes."""
+    calcite and opal fluxes.
+
+    extra: (tracer index, speed class, flux name, redistribution index)
+    of further sinkers riding the base speeds, the carbon isotopes
+    det13/det14 (poc speed) and calc13/calc14 (cal speed)
+    (mo_vertical_fluxes.F90:208-217); their bottom fluxes go into the
+    fluxes under their names.  Under sedbypass each returns to the water
+    column at its redistribution index (:496-526: the organic isotopes
+    stay detritus, the shell isotopes remineralize to the DIC isotopes;
+    the 14C flux is pror14, where BLOM's flor14 line reads pror13)."""
     oc = oc.clone()
-    w = sink_speeds(ptiestu, dtb, p)              # (4, K, J, I)
-    conc = oc[list(SINKERS)]                      # (4, K, J, I)
+    cls = list(range(len(SINKERS))) + [SPEED_CLASS[e[1]] for e in extra]
+    idxs = tuple(SINKERS) + tuple(e[0] for e in extra)
+    w = sink_speeds(ptiestu, dtb, p)[cls]         # (N, K, J, I)
+    conc = oc[list(idxs)]                         # (N, K, J, I)
     thick = dz > p.dp_min_sink                    # (K, J, I)
     wet = dz > p.dp_min
 
     # surface layer: no inflow; the WLIN outflow speed clamps to wmin
-    # (mo_vertical_fluxes.F90:146-159)
+    # (mo_vertical_fluxes.F90:146-159), in every poc-class row
     if p.use_wlin:
-        w[SPEED_CLASS['poc'], 0] = p.wmin * dtb
+        for i, c in enumerate(cls):
+            if c == SPEED_CLASS['poc']:
+                w[i, 0] = p.wmin * dtb
 
     tco = _ksum(torch.where(wet[None], conc * dz[None], 0.))
 
-    dconc = torch.zeros_like(conc[:, 0])          # donor conc/speed (4,J,I)
+    dconc = torch.zeros_like(conc[:, 0])          # donor conc/speed (N,J,I)
     dw = torch.zeros_like(conc[:, 0])
     new = []
     for k in range(dz.shape[0]):
@@ -82,7 +95,7 @@ def sinking(oc, dz, ptiestu, omask, dtb, p: BgcParams):
         dconc = torch.where(thickk[None], nk, dconc)
         dw = torch.where(thickk[None], wk, dw)
         new.append(nk)
-    new_conc = torch.stack(new, 1)                # (4, K, J, I)
+    new_conc = torch.stack(new, 1)                # (N, K, J, I)
 
     bot = dconc * dw                              # bottom flux per tracer
     tcn = _ksum(torch.where(wet[None], new_conc * dz[None], 0.)) + bot
@@ -91,9 +104,10 @@ def sinking(oc, dz, ptiestu, omask, dtb, p: BgcParams):
     bot = bot * q
 
     bot = bot * omask[None]
-    prorca, prcaca, silpro, produs = bot
+    prorca, prcaca, silpro, produs = bot[:4]
+    xbot = {e[2]: bot[4 + i] for i, e in enumerate(extra)}
 
-    for i, idx in enumerate(SINKERS):
+    for i, idx in enumerate(idxs):
         oc[idx] = torch.where(omask > 0.5, new_conc[i], oc[idx])
 
     if p.sedbypass:
@@ -109,9 +123,16 @@ def sinking(oc, dz, ptiestu, omask, dtb, p: BgcParams):
         oc[T.sco212] = oc[T.sco212] + flcaca
         oc[T.silica] = oc[T.silica] + flsil
         z = torch.zeros_like(prorca)
-        return oc, {'prorca': z, 'prcaca': z, 'silpro': z,
-                    'produs': produs, 'carflx_bot': prorca * p.rcar,
-                    'calflx_bot': prcaca, 'bsiflx_bot': silpro}
-    return oc, {'prorca': prorca, 'prcaca': prcaca, 'silpro': silpro,
-                'produs': produs, 'carflx_bot': prorca * p.rcar,
-                'calflx_bot': prcaca, 'bsiflx_bot': silpro}
+        for i, e in enumerate(extra):
+            oc[e[3]] = oc[e[3]] + torch.where(
+                wet, (bot[4 + i] / colz)[None], 0.)
+            xbot[e[2]] = z
+        flx = {'prorca': z, 'prcaca': z, 'silpro': z, 'produs': produs,
+               'carflx_bot': prorca * p.rcar, 'calflx_bot': prcaca,
+               'bsiflx_bot': silpro}
+    else:
+        flx = {'prorca': prorca, 'prcaca': prcaca, 'silpro': silpro,
+               'produs': produs, 'carflx_bot': prorca * p.rcar,
+               'calflx_bot': prcaca, 'bsiflx_bot': silpro}
+    flx.update(xbot)
+    return oc, flx

@@ -2,9 +2,10 @@
 
 The dicts are keyed by the field names the JAX package uses (they match
 the port's), so a caller can carry a blom_tpu Grid, State (its tracers
-included), CppmCoeffs, Forcing, BgcForcing, DiffusionFields,
-SwabsFields, CmnFields or VmixFields across with ``np.asarray`` on each
-field.
+included), CppmCoeffs, Forcing, BgcForcing, the sediment's SedState,
+DiffusionFields, SwabsFields, CmnFields or VmixFields across with
+``np.asarray`` on each field.  The BGC's TracerIndex and CisoParams are
+plain Python and cross as they are.
 Nothing here touches a JAX object."""
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bgc.sediment import SedState
 from .bgc.step import BgcForcing
 from .core.grid import TENSOR_FIELDS, Grid
 from .core.state import State
@@ -62,6 +64,10 @@ def bgc_forcing_from_numpy(d, dtype=torch.float64,
                            device='cpu') -> BgcForcing:
     return BgcForcing(**{k: _t(d[k], dtype, device)
                          for k in BgcForcing._fields})
+
+
+def sed_state_from_numpy(d, dtype=torch.float64, device='cpu') -> SedState:
+    return SedState(**_fields(SedState, d, dtype, device))
 
 
 def diffusion_fields_from_numpy(d, dtype=torch.float64,

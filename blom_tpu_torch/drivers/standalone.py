@@ -13,7 +13,8 @@ from typing import Optional
 
 import torch
 
-from ..bgc.params import NBGC, BgcParams
+from ..bgc.ciso import CisoParams
+from ..bgc.params import NBGC, BgcParams, make_tracer_index
 from ..bgc.step import BgcForcing, init_bgc_tracers, zero_bgc_forcing
 from ..core import eos, init, modeltime
 from ..core.grid import Grid
@@ -94,15 +95,12 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
     `use_idlage` adds the ideal-age tracer (trc slot 0), `use_bgc` the
     19 tracers of the base BGC chain after it, initialized as blom_tpu
     initializes them, with uniform BGC surface forcing
-    (`model.bgc_forcing`); the carbon isotopes (`use_ciso`) are not
-    ported and raise.  `device` defaults to CUDA and raises when CUDA is
-    missing."""
+    (`model.bgc_forcing`); with `use_ciso` also the 12 carbon-isotope
+    tracers after them (NOINYOCISO: `par.bgc_ti` the extended tracer
+    index, `par.bgc_cp` the isotope parameters).  `device` defaults to
+    CUDA and raises when CUDA is missing."""
     from ..configs import fuk95 as cfg
 
-    if use_ciso:
-        raise NotImplementedError(
-            'not ported to blom_tpu_torch: the BGC carbon isotopes '
-            '(ciso, use_ciso=True)')
     device = _device(device)
     itdm = itdm or cfg.ITDM
     jtdm = jtdm or cfg.JTDM
@@ -123,7 +121,13 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
                       torch.from_numpy(saln)).numpy()
     niag = 1 if use_idlage else 0
     itrbgc = niag if use_bgc else -1
-    ntr = niag + (NBGC if use_bgc else 0)
+    bgc_ti = bgc_cp = None
+    if use_bgc and use_ciso:
+        bgc_ti = make_tracer_index(use_ciso=True)
+        bgc_cp = CisoParams()
+        ntr = niag + bgc_ti.ntotal
+    else:
+        ntr = niag + (NBGC if use_bgc else 0)
     state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
                             sigmar=sigmar, dtype=dtype, ntr=ntr)
 
@@ -135,11 +139,12 @@ def build_fuk95(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
         pgfmth='dynamic enthalpy', vcoord_isopyc=isopyc,
         ale=None if isopyc else make_ale_params(kdm),
         itriag=0 if use_idlage else -1, itrbgc=itrbgc,
-        bgc=BgcParams() if use_bgc else None)
+        bgc=BgcParams() if use_bgc else None, bgc_ti=bgc_ti,
+        bgc_cp=bgc_cp)
     forcing = zero_forcing(kdm, grid.shape, dtype, device)
     bgc_forcing = None
     if use_bgc:
-        state = init_bgc_tracers(state, itrbgc, e)
+        state = init_bgc_tracers(state, itrbgc, e, ti=bgc_ti, cp=bgc_cp)
         bgc_forcing = zero_bgc_forcing(grid.shape, dtype, device)
     return _assemble(grid, e, par, clock, state, forcing, dtype, device,
                      bgc_forcing)

@@ -82,8 +82,8 @@ class StepParams(NamedTuple):
     itrgls: int = -1
     itrbgc: int = -1
     bgc: object = None        # BgcParams when itrbgc >= 0
-    bgc_ti: object = None     # extended BGC tracer index (not ported)
-    bgc_cp: object = None     # carbon-isotope parameters (not ported)
+    bgc_ti: object = None     # extended BGC tracer index (with bgc_cp)
+    bgc_cp: object = None     # carbon-isotope parameters (ciso.CisoParams)
     nday_in_year: float = 360.
     difest: Optional[DifestParams] = DifestParams()
     thermf: Optional[ThermfParams] = ThermfParams()
@@ -100,8 +100,7 @@ def check_supported(grid: Grid, par: StepParams):
     """Raise NotImplementedError, naming the option, for anything this
     port does not run: the direct regrid and reconstructions other than
     PPM, KPP and tidal mixing, neutral diffusion, other advection
-    schemes, the BGC carbon isotopes (ciso) and extension tracers, the
-    TKE/GLS tracers and surface restoring.  On the isopycnic path the
+    schemes, the TKE/GLS tracers and surface restoring.  On the isopycnic path the
     message says so; that path runs no regrid and diffuses along layers
     whatever ltedtp says, as blom_tpu's step does."""
     missing = []
@@ -114,10 +113,6 @@ def check_supported(grid: Grid, par: StepParams):
         missing.append("neutral diffusion (ltedtp='neutral')")
     if par.advmth != 'cppm':
         missing.append(f'advection advmth={par.advmth!r}')
-    if par.bgc_cp is not None:
-        missing.append('BGC carbon isotopes (ciso, par.bgc_cp)')
-    if par.bgc_ti is not None:
-        missing.append('extended BGC tracer index (par.bgc_ti)')
     if par.itrtke >= 0 or par.itrgls >= 0:
         missing.append('TKE/GLS closure (par.itrtke/itrgls)')
     if par.thermf is not None and (par.thermf.trxday > 0.
@@ -242,7 +237,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     if par.itrbgc >= 0 and bgc_forcing is not None:
         _mark('hamocc')
         s, _ = hamocc_step(grid, e, par.bgc, s, bgc_forcing, par.itrbgc,
-                           n, m, delt1)
+                           n, m, delt1, ti=par.bgc_ti, cp=par.bgc_cp)
 
     _mark('barotp')
     s = barotp(grid, s, utotn, vtotn, m, n, par.lstep, dlt, par.barotp)

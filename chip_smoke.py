@@ -75,6 +75,23 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    (recorded in the run by observe_carried); tracers_parity: one f64
    step of each time-level parity of the tracer step at 24x8x8, card
    against CPU, the tracers one by one;
+   ciso: fuk95 with the BGC and its carbon isotopes (NOINYOCISO, 31
+   tracers) with bench.py's physics at 384x360x53 in f32, 10 timed steps
+   after 2: the slice's gates, the BGC's (P_DRIFT_REF['ciso']), delta13C
+   of DIC over water within D13C_RANGE and Delta14C finite, launches and
+   host syncs as the tracer path's, every CPPM launch carrying 33 fields
+   and every K2 launch 31 tracers, s/step, grid-points/s and the device
+   time of each phase; ciso_kernels: the CPPM sweep on both axes (nt 33)
+   and K2 (ntr 31) on the inputs of one step of that run, checked and
+   timed as tracers_kernels; ciso_budget: one hamocc_step at 384x360x53
+   in f64 under full ice, the 13C inventory conserved and the 14C
+   inventory scaled by c14dec within CISO_BUDGET_RTOL; ciso_parity: one
+   f64 step of each time-level parity at 24x8x8, card against CPU, the
+   31 tracers one by one; sediment: hamocc_step_with_sediment on
+   NOINYOC's state at 384x360x53 in f32 with the detritus seeded, 4
+   calls: finite tracers and sediment, POC gained in every wet column,
+   ms per call and the inventory's totals with the sediment before and
+   after;
 8. decks: each limits deck of DECKS (written under build/decks/) built
    by the port's build_case, first as fuk95 at 384x360x53 in f32 for 4
    timed steps after a 1-step warm-up, then as the channel at its full
@@ -108,7 +125,7 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
-   decks, the tripolar grid).
+   carbon-isotope path, the decks, the tripolar grid).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -172,10 +189,22 @@ AGE_FLOOR_F32 = -1e-10
 # total phosphorus may drift by f32 rounding of the transport; the gate is
 # P_DRIFT_FACTOR times what blom_tpu's own f32 run shows on the CPU at
 # 96x32x53 over the same steps (tracer_drift_reference.py), by path
+# ('ciso': `JAX_PLATFORMS=cpu python3 tracer_drift_reference.py`, its
+# third run, on an 8-core Intel Xeon; equal to the 'tracers' run's, as
+# neither the age nor the isotopes feed back on the base tracers)
 P_DRIFT_REF = {'tracers': -5.452903606428805e-08,
-               'tracers_isopyc': 6.964558196820292e-08}
+               'tracers_isopyc': 6.964558196820292e-08,
+               'ciso': -5.452903606428805e-08}
 P_DRIFT_FACTOR = 10.
 PARITY_TRACERS = dict(itdm=24, jtdm=8, kdm=8)
+# The carbon-isotope path (NOINYOCISO): fuk95 with the BGC and its 12
+# isotope tracers (31 tracers: the CPPM sweep carries 33 fields, ALE K2
+# remaps 31 tracers)
+NSTEPS_CISO = (2, 10)               # warm-up, timed steps
+D13C_RANGE = (-40., 20.)            # permil, tests/test_ciso.py:192-207
+CISO_BUDGET_RTOL = 1e-9             # tests/test_ciso.py:144-189
+PARITY_CISO = dict(itdm=24, jtdm=8, kdm=8)
+NCALLS_SEDIMENT = 4                 # tests/test_sediment.py:157-190
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 
@@ -1312,14 +1341,19 @@ def run_isopyc_parity(dev):
 
 # --------------------------------------------------------------- tracers
 
-def build_tracers(dev, dtype, isopyc=False, **size):
+def build_tracers(dev, dtype, isopyc=False, ciso=False, **size):
     """fuk95 with bench.py's physics and the tracers: the ideal age and
-    the BGC base chain (NOINYAGE with NOINYOC), or in the isopycnic
-    coordinate the BGC alone (NOIIAOC)."""
+    the BGC base chain (NOINYAGE with NOINYOC), in the isopycnic
+    coordinate the BGC alone (NOIIAOC), or with `ciso` the BGC and its
+    carbon isotopes (NOINYOCISO)."""
     from blom_tpu_torch.drivers import standalone
     from blom_tpu_torch.dynamics.difest import DifestParams
-    tracers = (dict(vcoord=ISOPYC, use_bgc=True) if isopyc
-               else dict(use_idlage=True, use_bgc=True))
+    if ciso:
+        tracers = dict(use_bgc=True, use_ciso=True)
+    elif isopyc:
+        tracers = dict(vcoord=ISOPYC, use_bgc=True)
+    else:
+        tracers = dict(use_idlage=True, use_bgc=True)
     model = standalone.build_fuk95(dtype=dtype, device=dev, **tracers,
                                    **size)
     model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
@@ -1385,9 +1419,32 @@ def age_gates(model, s, nsteps):
     return ok, rec
 
 
-def run_tracers(dev, paths, syncs, results, isopyc=False):
+def ciso_gates(model, s, nsteps):
+    """Over water (the layers the BGC step treats as wet) delta13C of DIC
+    within D13C_RANGE and Delta14C of DIC finite."""
+    import torch
+    from blom_tpu_torch.bgc import ciso
+    from blom_tpu_torch.core.constants import onem
+    new = 1 if nsteps % 2 == 0 else 0
+    par, b, ti = model.par.bgc, model.par.itrbgc, model.par.bgc_ti
+    blk = s.trc[new, b:b + ti.ntotal].double()
+    wet = (s.dp[new] > par.dp_min * onem) & (model.grid.ip > .5)[None]
+    d13 = ciso.delta13c(blk, ti, model.par.bgc_cp)[wet]
+    d14 = ciso.delta14c(blk, ti, model.par.bgc_cp)[wet]
+    rec = dict(delta13c=[float(d13.min()), float(d13.max())],
+               delta13c_range=list(D13C_RANGE),
+               delta14c=[float(d14.min()), float(d14.max())],
+               delta14c_finite=bool(torch.isfinite(d14).all()))
+    ok = (D13C_RANGE[0] < rec['delta13c'][0]
+          and rec['delta13c'][1] < D13C_RANGE[1] and rec['delta14c_finite'])
+    return ok, rec
+
+
+def run_tracers(dev, paths, syncs, results, isopyc=False, ciso=False):
     """The tracer path at the main path's width in f32 (fuk95 with the
-    age and the BGC, or with isopyc the isopycnic fuk95 with the BGC):
+    age and the BGC, with isopyc the isopycnic fuk95 with the BGC, with
+    ciso fuk95 with the BGC and its carbon isotopes, whose gates add
+    ciso_gates and whose path has no age):
     warm-up and timed steps from rest, the gates of its coordinate and
     the BGC's, launches and host syncs per step, the tracer count each
     CPPM and K2 launch carried, s/step and grid-points/s, then the device
@@ -1399,11 +1456,13 @@ def run_tracers(dev, paths, syncs, results, isopyc=False):
     isopycnic path's, over other steps."""
     import torch
     from blom_tpu_torch.drivers import standalone
-    phase = 'tracers_isopyc' if isopyc else 'tracers'
-    warm, nsteps = NSTEPS_TRACERS_ISOPYC if isopyc else NSTEPS_TRACERS
+    phase = 'ciso' if ciso else ('tracers_isopyc' if isopyc
+                                 else 'tracers')
+    warm, nsteps = (NSTEPS_CISO if ciso else NSTEPS_TRACERS_ISOPYC if isopyc
+                    else NSTEPS_TRACERS)
     t0 = time.perf_counter()
-    model = build_tracers(dev, torch.float32, isopyc, itdm=II, jtdm=JJ,
-                          kdm=KK)
+    model = build_tracers(dev, torch.float32, isopyc, ciso, itdm=II,
+                          jtdm=JJ, kdm=KK)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     mass0 = mass(model, model.state.dp[1])
@@ -1422,7 +1481,7 @@ def run_tracers(dev, paths, syncs, results, isopyc=False):
         ok, rec = isopyc_gates(model, s, nsteps, mass0)
     else:
         ok, rec = slice_gates(model, s, nsteps, mass0)
-        ok_a, rec_a = age_gates(model, s, nsteps)
+        ok_a, rec_a = (ciso_gates if ciso else age_gates)(model, s, nsteps)
         ok &= ok_a
         rec.update(rec_a)
     ok_b, rec_b = bgc_gates(model, s, nsteps, p0, phase)
@@ -1488,7 +1547,10 @@ def check_tracer_kernels(model, s, delt1, results, phase):
                                    f"{kw['limiting']}",
                            div_corr=kw.get('div_corr') is not None,
                            n_cells_dp_zero=int(((a[0] == 0) & wet).sum()),
-                           wet_cells=int(wet.sum()) * a[0].shape[0])
+                           wet_cells=int(wet.sum()) * a[0].shape[0],
+                           dynamic_smem=cppm_cuda.shared_bytes(
+                               a[0].shape[2 if kw['ax'] == -1 else 1],
+                               kw['ax'], a[0].dtype))
                 dtype = a[0].dtype
                 if isopyc:
                     ok_all &= rec['n_cells_dp_zero'] > 0
@@ -1542,6 +1604,137 @@ def run_tracers_parity(dev):
     ok = all(r <= STEP_REL for _, r in one_step.values())
     emit('tracers_parity', ok=ok, tolerance=STEP_REL, size=PARITY_TRACERS,
          one_step=one_step)
+    return ok
+
+
+def _isotope_inventories(model, s, lev):
+    """The 13C and 14C inventories of level `lev` (DIC, shells and
+    rcar times the organic pools, times the layer mass), summed in f64,
+    as tests/test_ciso.py:144-189 sums blom_tpu's."""
+    from blom_tpu_torch.core.constants import onem
+    ti, rcar = model.par.bgc_ti, model.par.bgc.rcar
+    t = s.trc[lev, model.par.itrbgc:].double()
+    d = s.dp[lev].double() / onem
+    out = []
+    for sco, calc, org in ((ti.sco213, ti.calc13, (ti.doc13, ti.phy13,
+                                                   ti.zoo13, ti.det13)),
+                           (ti.sco214, ti.calc14, (ti.doc14, ti.phy14,
+                                                   ti.zoo14, ti.det14))):
+        o = sum(t[r] for r in org)
+        out.append(float(((t[sco] + t[calc] + rcar * o) * d).sum()))
+    return out
+
+
+def run_ciso_budget(dev):
+    """One hamocc_step of NOINYOCISO at the main path's width in f64 on
+    the card under full ice (no gas exchange), as tests/test_ciso.py's
+    budget test: the 13C inventory conserved and the 14C inventory
+    scaled by c14dec, each within CISO_BUDGET_RTOL."""
+    import torch
+    from blom_tpu_torch.bgc.step import hamocc_step
+    from blom_tpu_torch.drivers import standalone
+    model = standalone.build_fuk95(dtype=torch.float64, itdm=II, jtdm=JJ,
+                                   kdm=KK, device=dev, use_bgc=True,
+                                   use_ciso=True)
+    par, dtsec = model.par, 180.
+    f = model.bgc_forcing._replace(
+        fice=torch.ones_like(model.bgc_forcing.fice))
+    c13_0, c14_0 = _isotope_inventories(model, model.state, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1, _ = hamocc_step(model.grid, model.e, par.bgc, model.state.clone(),
+                        f, par.itrbgc, 0, 0, dtsec, ti=par.bgc_ti,
+                        cp=par.bgc_cp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c13_1, c14_1 = _isotope_inventories(model, s1, 0)
+    dec = par.bgc_cp.c14dec(dtsec / 86400.)
+    err13 = abs(c13_1 / c13_0 - 1.)
+    err14 = abs(c14_1 / (c14_0 * dec) - 1.)
+    finite = bool(torch.isfinite(s1.trc).all())
+    ok = finite and err13 <= CISO_BUDGET_RTOL and err14 <= CISO_BUDGET_RTOL
+    emit('ciso_budget', ok=ok, shape=[KK, JJ, II], dtype='float64',
+         ntr=model.state.trc.shape[1], finite=finite, c13_rel_err=err13,
+         c14_rel_err=err14, c14dec=dec, tolerance=CISO_BUDGET_RTOL,
+         hamocc_seconds=wall)
+    return ok
+
+
+def run_ciso_parity(dev):
+    """One f64 step of each time-level parity of the NOINYOCISO step at
+    PARITY_CISO size, card against CPU, within STEP_REL, the 31 tracers
+    one by one among the fields."""
+    import torch
+    models = {d: build_tracers(d, torch.float64, ciso=True, **PARITY_CISO)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev, PARITY_FIELDS + ('trc',))
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('ciso_parity', ok=ok, tolerance=STEP_REL, size=PARITY_CISO,
+         ntr=models['cpu'].state.trc.shape[1], one_step=one_step)
+    return ok
+
+
+def bgc_inventory(model, s, sed, lev):
+    """inventory_bgc of level `lev` with the sediment `sed`: the
+    concentrations and geometric thicknesses as hamocc_step makes them."""
+    from blom_tpu_torch.bgc.inventory import inventory_bgc
+    from blom_tpu_torch.bgc.params import NBGC
+    from blom_tpu_torch.core import eos
+    from blom_tpu_torch.core.constants import onem, rho0
+    from blom_tpu_torch.core.state import cumulative_p
+    import torch
+    par, b, g = model.par.bgc, model.par.itrbgc, model.grid
+    dp = s.dp[lev]
+    pmid = cumulative_p(dp)[:-1] + .5 * dp
+    rho = eos.rho(pmid, s.temp[lev], s.saln[lev]) / rho0
+    lyr = (dp > par.dp_min * onem) & (g.ip > .5)
+    dz = torch.where(lyr, dp / (onem * rho), 0.)
+    oc = s.trc[lev, b:b + NBGC] * rho[None]
+    inv = inventory_bgc(oc, dz, g.scp2, g.ip, par, sed=sed)
+    return {k: float(inv[k]) for k in ('totalcarbon', 'totalphos',
+                                       'totalsil', 'totalnitr',
+                                       'totalalk', 'totvol')}
+
+
+def run_sediment(dev):
+    """hamocc_step_with_sediment on the card on NOINYOC's state at the
+    main path's width in f32, the detritus seeded at 1e-6 as
+    tests/test_sediment.py:157-190 seeds it, for NCALLS_SEDIMENT calls:
+    finite tracers and sediment, POC gained in the top sediment layer of
+    every wet column; ms per call, and inventory_bgc's totals with the
+    sediment before and after."""
+    import dataclasses
+    import torch
+    from blom_tpu_torch.bgc import sediment as sd
+    from blom_tpu_torch.bgc.params import BgcTracers as T
+    from blom_tpu_torch.bgc.step import hamocc_step_with_sediment
+    from blom_tpu_torch.drivers import standalone
+    model = standalone.build_fuk95(dtype=torch.float32, itdm=II, jtdm=JJ,
+                                   kdm=KK, device=dev, use_bgc=True)
+    par, b, g = model.par, model.par.itrbgc, model.grid
+    s = model.state.clone()
+    s.trc[:, b + T.det] = 1.e-6
+    sed = sd.init_sediment(g.shape, torch.float32, dev)
+    inv0 = bgc_inventory(model, s, sed, 0)
+    ms = []
+    for _ in range(NCALLS_SEDIMENT):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, sed, _ = hamocc_step_with_sediment(
+            g, model.e, par.bgc, s, model.bgc_forcing, sed, b, 0, 1, 1800.)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    inv1 = bgc_inventory(model, s, sed, 0)
+    finite = bool(torch.isfinite(s.trc).all())
+    sed_finite = all(bool(torch.isfinite(getattr(sed, f.name)).all())
+                     for f in dataclasses.fields(sed))
+    wet = g.ip > 0
+    poc = sed.sedlay[sd.SedSolid.sso12, 0][wet]
+    ok = finite and sed_finite and bool((poc > 0.).all())
+    emit('sediment', ok=ok, shape=[KK, JJ, II], dtype='float32',
+         calls=NCALLS_SEDIMENT, finite_trc=finite, finite_sediment=sed_finite,
+         poc_top_min=float(poc.min()), wet_columns=int(wet.sum()),
+         ms_per_call=ms, inventory_before=inv0, inventory_after=inv1)
     return ok
 
 
@@ -2047,6 +2240,10 @@ def main():
     ok &= run_tracers(dev, paths, syncs, tracer_results)
     ok &= run_tracers(dev, paths, syncs, tracer_results, isopyc=True)
     ok &= run_tracers_parity(dev)
+    ok &= run_tracers(dev, paths, syncs, tracer_results, ciso=True)
+    ok &= run_ciso_budget(dev)
+    ok &= run_ciso_parity(dev)
+    ok &= run_sediment(dev)
     ok &= run_tripolar(dev, paths, syncs, tripolar_results)
     ok &= run_tripolar_symmetry(dev)
     ok &= run_tripolar_parity(dev)

@@ -9,7 +9,8 @@ of its largest value (max |port - ref| <= 1e-12 max |ref|), `carchm`
 and `hamocc_step` too, though their 20-pass pH solve carries the ulp
 differences of exp, log and pow (PyTorch's and XLA's differ by an ulp)
 through every pass (measured: 3e-15 and 6e-16).  The carbon isotopes and
-the sediment are refused by name."""
+the sediment are held in tests/test_torch_ciso.py and
+tests/test_torch_sediment.py."""
 
 import dataclasses
 
@@ -313,20 +314,3 @@ def test_hamocc_step_matches_blom_tpu(bgc_models):
             _close(np.asarray(ref_s.trc)[lev, i], port_s.trc[lev, i],
                    name=f'trc[{lev}, {i}]')
     _close_all(ref_d, port_d)
-
-
-def test_ciso_and_sediment_are_refused(bgc_models):
-    _, tm = bgc_models
-    with pytest.raises(NotImplementedError, match='ciso'):
-        tst.build_fuk95(use_bgc=True, use_ciso=True, device='cpu', **SIZE)
-    with pytest.raises(NotImplementedError, match='ciso'):
-        tbstep.hamocc_step(tm.grid, tm.e, tm.par.bgc, tm.state.clone(),
-                           tm.bgc_forcing, 0, 1, 0, 360., ti=object(),
-                           cp=object())
-    with pytest.raises(NotImplementedError, match='ciso'):
-        tbstep.init_bgc_tracers(tm.state, 0, tm.e, ti=object(),
-                                cp=object())
-    with pytest.raises(NotImplementedError, match='sediment'):
-        tbstep.hamocc_step_with_sediment(
-            tm.grid, tm.e, tm.par.bgc, tm.state, tm.bgc_forcing, None, 0,
-            1, 0, 360.)

@@ -294,8 +294,7 @@ def test_entry_point_needs_cuda_or_device(monkeypatch):
     dict(vmix=tvm.VmixParams(twedon=1.)),
     dict(ltedtp='neutral', difest=tdf.DifestParams(egc=.85, egmndf=100.)),
     dict(vcoord_isopyc=True, vmix=tvm.VmixParams(use_kpp=True)),
-    dict(advmth='remap'), dict(itrbgc=0, bgc_cp=object()),
-    dict(itrbgc=0, bgc_ti=object()), dict(itrtke=0),
+    dict(advmth='remap'), dict(itrtke=0),
     dict(thermf=tstep.ThermfParams(trxday=30.))])
 def test_unported_phases_raise(models, change):
     _, tm = models

@@ -6,9 +6,10 @@
 Runs the JAX reference package (blom_tpu) as a TPU runs it, with 64-bit
 types off, at 96x32x53 unless sizes are given: fuk95 with the ideal age
 and the BGC base chain (bench.py's physics, the ALE coordinate) for 10
-steps, and the isopycnic fuk95 with the BGC (NOIIAOC) for 2 steps, each
-from the initial state, as chip_smoke.py's `tracers` and
-`tracers_isopyc` phases run the port.  Prints one JSON line per run with
+steps, the isopycnic fuk95 with the BGC (NOIIAOC) for 2 steps, and
+fuk95 with the BGC and the carbon isotopes (NOINYOCISO, bench.py's
+physics) for 10 steps, each from the initial state, as chip_smoke.py's
+`tracers`, `tracers_isopyc` and `ciso` phases run the port.  Prints one JSON line per run with
 the relative drift of the total phosphorus (phosphate, phytoplankton,
 zooplankton, DOC and detritus, weighted by the layer mass and summed in
 f64) from the initial state to the newest time level: the f32 rounding
@@ -60,7 +61,8 @@ def main(argv):
         else (96, 32, 53)
     size = dict(itdm=itdm, jtdm=jtdm, kdm=kdm)
     for nsteps, build in ((10, dict(use_idlage=True, use_bgc=True)),
-                          (2, dict(use_bgc=True, vcoord='isopyc_bulkml'))):
+                          (2, dict(use_bgc=True, vcoord='isopyc_bulkml')),
+                          (10, dict(use_bgc=True, use_ciso=True))):
         print(json.dumps(drift(size, nsteps, **build)), flush=True)
     return 0
 
