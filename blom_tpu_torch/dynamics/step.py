@@ -4,13 +4,16 @@ Counterpart of `blom_tpu/dynamics/step.py` (BLOM's
 mod_blom_step.F90:74-324) for both vertical coordinates.  The ALE
 (cntiso_hybrid) step: tmsmt1, the ALE regrid/remap, cmnfld with the
 lateral diffusivities and the GM eddy transport, advect (CPPM), pbcor1,
-the along-layer lateral diffusion, pgforc (dynamic enthalpy), momtum,
-the CVMix-lite vertical mixing with the implicit vertical diffusion of
-tracers and momentum, barotp, pbcor2 and tmsmt2.  The isopycnic
-(isopyc_bulkml) step: no regrid, the isopycnic GM (eddtra_isopyc) when
-egc > 0, the mixed-layer wind stress in momtum, then convec, the
-diapycnal mixing (diapfl) with the CVMix-lite diffusivity and the bulk
-mixed layer (mxlayr) in place of the implicit vertical diffusion.  On a
+the along-layer lateral diffusion, pgforc (dynamic enthalpy or
+geopotential), momtum, the vertical mixing (CVMix-lite or KPP, with the
+tidal term when set) with the implicit vertical diffusion of tracers and
+momentum, barotp, pbcor2 and tmsmt2.  The isopycnic (isopyc_bulkml)
+step: no regrid, the isopycnic GM (eddtra_isopyc) when egc > 0, the
+mixed-layer wind stress in momtum, then convec, the diapycnal mixing
+(diapfl) with the estimator's diffusivity, merged with the TKE/GLS
+closure's when par.itrtke is set, and the bulk mixed layer (mxlayr) in
+place of the implicit vertical diffusion.  On the ALE path the TKE/GLS
+slots are plain tracers, as in blom_tpu.  On a
 tripolar grid the step ends with the fold's top-row sync (sync_state).
 On either coordinate the tracers' source terms follow the vertical physics:
 the ideal age (idlage_step) and the BGC chain (hamocc_step).  Each
@@ -31,11 +34,13 @@ import torch
 
 from ..bgc.step import BgcForcing, hamocc_step
 from ..core import eos
+from ..core.constants import epsilp, grav
 from ..core.grid import Grid
-from ..core.state import State
+from ..core.state import State, cumulative_p
+from ..phys import tke
 from ..phys.forcing import Forcing
 from ..phys.swabs import SwabsFields
-from ..phys.vmix import VmixParams, difest_vertical, unported_vmix
+from ..phys.vmix import VmixParams, difest_vertical, difest_vertical_kpp
 from ..tracers.idlage import idlage_step
 from .advect import advect
 from .ale import AleParams, ale_regrid_remap, unported_ale
@@ -99,22 +104,18 @@ def _diffus_on(par: StepParams) -> bool:
 def check_supported(grid: Grid, par: StepParams):
     """Raise NotImplementedError, naming the option, for anything this
     port does not run: the direct regrid and reconstructions other than
-    PPM, KPP and tidal mixing, neutral diffusion, other advection
-    schemes, the TKE/GLS tracers and surface restoring.  On the isopycnic path the
-    message says so; that path runs no regrid and diffuses along layers
-    whatever ltedtp says, as blom_tpu's step does."""
+    PPM, neutral diffusion, other advection schemes and surface
+    restoring.  On the isopycnic path the message says so; that path
+    runs no regrid and diffuses along layers whatever ltedtp says, as
+    blom_tpu's step does."""
     missing = []
     if par.ale is not None and not par.vcoord_isopyc:
         missing += unported_ale(par.ale)
-    if par.vmix is not None:
-        missing += unported_vmix(par.vmix)
     if _diffus_on(par) and par.ltedtp == 'neutral' \
             and not par.vcoord_isopyc:
         missing.append("neutral diffusion (ltedtp='neutral')")
     if par.advmth != 'cppm':
         missing.append(f'advection advmth={par.advmth!r}')
-    if par.itrtke >= 0 or par.itrgls >= 0:
-        missing.append('TKE/GLS closure (par.itrtke/itrgls)')
     if par.thermf is not None and (par.thermf.trxday > 0.
                                    or par.thermf.srxday > 0.):
         missing.append('surface restoring (par.thermf)')
@@ -122,6 +123,54 @@ def check_supported(grid: Grid, par: StepParams):
         where = ' (isopycnic coordinate)' if par.vcoord_isopyc else ''
         raise NotImplementedError(f'not ported to blom_tpu_torch{where}: '
                                   + '; '.join(missing))
+
+
+def _difest_v(par: StepParams):
+    """The vertical-mixing estimator: CVMix-lite, or with par.vmix.use_kpp
+    the full KPP boundary layer (difest_vertical_hybrid's CVMix_kpp path,
+    mod_difest.F90:900-1200)."""
+    if par.vmix is not None and par.vmix.use_kpp:
+        return difest_vertical_kpp
+    return difest_vertical
+
+
+def _tke_closure(grid: Grid, s: State, forcing: Forcing, kdiff,
+                 par: StepParams, n: int, delt1):
+    """Update the TKE/GLS tracers of level n in place and return the
+    diffusivity merged with the closure's (difest_isobml's TKE branch,
+    mod_difest.F90:2641-2930).  With itrgls < 0 psi is diagnostic: it is
+    read from trc[n, itrgls] (the last slot) and only the TKE slot is
+    written, as in blom_tpu."""
+    dp_k = s.dp[n]
+    p_i = cumulative_p(dp_k) * grid.ip
+    sig = s.sigma[n]
+    dp_mid = torch.clamp(.5 * (dp_k[:-1] + dp_k[1:]), min=epsilp)
+    bvfsq_i = grav * grav * (sig[1:] - sig[:-1]) / dp_mid
+    bvfsq = torch.cat([bvfsq_i[:1], bvfsq_i], 0)
+
+    u_p = .5 * (s.u[n] + grid.ip1(s.u[n]))
+    v_p = .5 * (s.v[n] + grid.jp1(s.v[n], 'v', True))
+    du, dv = u_p[1:] - u_p[:-1], v_p[1:] - v_p[:-1]
+    du2_i = du * du + dv * dv
+    du2l = torch.cat([du2_i[:1], du2_i], 0)
+
+    kidx = torch.arange(dp_k.shape[0], device=dp_k.device)[:, None, None]
+    kmax = torch.where(dp_k > epsilp, kidx, 0).amax(0)
+    taux_p = .5 * (forcing.taux + grid.ip1(forcing.taux))
+    tauy_p = .5 * (forcing.tauy + grid.jp1(forcing.tauy, 'v', True))
+    ustar = torch.sqrt(torch.sqrt(taux_p * taux_p + tauy_p * tauy_p)
+                       / 1000.)
+
+    tke_tr = torch.clamp(s.trc[n, par.itrtke], min=tke.tke_min)
+    gls_tr = torch.clamp(s.trc[n, par.itrgls], min=tke.gls_psi_min)
+    tp = tke.TkeParams(use_gls=par.itrgls >= 0)
+    tke_new, gls_new, nus, _ = tke.tke_gls_update(
+        tke_tr, gls_tr, kdiff, du2l, bvfsq, dp_k, p_i, ustar, s.ustarb,
+        kmax, delt1, tp)
+    s.trc[n, par.itrtke] = tke_new
+    if par.itrgls >= 0:
+        s.trc[n, par.itrgls] = gls_new
+    return s, torch.maximum(kdiff, nus)
 
 
 # Per-phase device timing, off (None) by default.  A caller that sets
@@ -206,12 +255,19 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         s = convec(grid, e, s, m, n)
         if par.vmix is not None and swabs is not None:
             _mark('difest_vertical')
-            vf = difest_vertical(grid, e, s, forcing, swabs, par.vmix, n)
+            vf = _difest_v(par)(grid, e, s, forcing, swabs, par.vmix, n)
             dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t,
                                       difvso=vf.Kdiff_s, difvmo=vf.Kvisc_m,
                                       bld=vf.mld * grid.ip)
+            kdiff = vf.Kdiff_t
+            if par.itrtke >= 0:
+                # the TKE(/GLS) closure's diffusivity joins the
+                # estimator's (difest_isobml, mod_difest.F90:2641-2930)
+                _mark('tke_closure')
+                s, kdiff = _tke_closure(grid, s, forcing, kdiff, par, n,
+                                        delt1)
             _mark('diapfl')
-            s = diapfl(grid, e, s, vf.Kdiff_t, m, n, delt1)
+            s = diapfl(grid, e, s, kdiff, m, n, delt1)
         _mark('mxlayr')
         s, dfl = mxlayr(grid, e, s, forcing, par.mxlayr, m, n, delt1,
                         swabs=swabs, dfl=dfl)
@@ -220,7 +276,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         # coefficients and penetration factors, then implicit vertical
         # diffusion
         _mark('difest_vertical')
-        vf = difest_vertical(grid, e, s, forcing, swabs, par.vmix, n)
+        vf = _difest_v(par)(grid, e, s, forcing, swabs, par.vmix, n)
         dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t,
                                   difvso=vf.Kdiff_s, difvmo=vf.Kvisc_m,
                                   bld=vf.mld * grid.ip)

@@ -92,7 +92,8 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    calls: finite tracers and sediment, POC gained in every wet column,
    ms per call and the inventory's totals with the sediment before and
    after;
-8. decks: each limits deck of DECKS (written under build/decks/) built
+8. decks: each limits deck of DECKS (D with the geopotential PGF,
+   DECK_PGFMTH; its phases also timed as fuk95) (written under build/decks/) built
    by the port's build_case, first as fuk95 at 384x360x53 in f32 for 4
    timed steps after a 1-step warm-up, then as the channel at its full
    208x512 width with 16 layers in f64 for one timed step after a
@@ -121,11 +122,32 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    SYMMETRY_ULPS ulps of the field's largest magnitude; tripolar_parity:
    one f64 step of each time-level parity at 16x12x6 from a state three
    steps in, card against CPU;
-10. the kernels summary line (with the tracer counts each kernel met and
+10. the vertical physics: kpp, fuk95 with bench.py's physics, KPP with
+   the tidal term (twedon from SEED in TWEDON_RANGE over water, written
+   under build/tidal/ and read back with read_tidaldissip) under a wind
+   stress, a cooling and a seeded Langmuir factor, at 384x360x53 in f32
+   for 10 timed steps after 2: the slice's gates, launches per step as
+   the main path's, host syncs per step no more than its, s/step,
+   grid-points/s and the device time of each phase, then
+   difest_vertical_kpp and the tidal term on the final state
+   (kpp_gates); kpp_parity: one f64 step of each time-level parity at
+   24x8x8 with KPP, the tidal field and the geopotential PGF, card
+   against CPU; tke: the isopycnic fuk95 with the TKE/GLS closure (two
+   tracer slots, itrtke 0, itrgls 1) at 384x360x53 in f32, 3 timed steps
+   after 1: the isopycnic gates, both slots at their floors or above
+   over water and TKE above twice its floor somewhere, launches (CPPM 2,
+   momentum 1 a step), every CPPM launch at 4 fields, s/step and the
+   phase times; tke_kernels: the CPPM sweep at nt 4 on both axes on the
+   inputs of one step of that run (massless layers, counted), checked
+   and timed as tracers_kernels; tke_parity: one f64 step of each parity
+   at 24x8x10, card against CPU, the slots one by one (deck D, the main
+   path's variants with the geopotential PGF, runs among the decks);
+11. the kernels summary line (with the tracer counts each kernel met and
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
-   carbon-isotope path, the decks, the tripolar grid).
+   carbon-isotope path, the decks, the tripolar grid, the vertical
+   physics).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -221,7 +243,12 @@ DECKS = {
           'non_oscillatory'),
     'C': ('enscon', 'partial', 'monotonic', 'non_oscillatory',
           'non_oscillatory'),
+    'D': ('enscon', 'full', 'non_oscillatory', 'non_oscillatory',
+          'non_oscillatory'),
 }
+# {name: PGFMTH} where a deck leaves the dynamic-enthalpy default: deck D
+# runs the main path's variants with the geopotential PGF
+DECK_PGFMTH = {'D': 'geopotential'}
 EXPERIMENTS = {'channel': dict(baclin='300.', batrop='10.', cwbdts='5.e-5'),
                'fuk95': dict(baclin='180.', batrop='6.', cwbdts='0.')}
 DECK_TEXT = """\
@@ -235,6 +262,7 @@ DECK_TEXT = """\
   CWBDTS   = {cwbdts},
   CWBDLS   = 25.,
   MOMMTH   = '{mommth}',
+  PGFMTH   = '{pgfmth}',
   CPPM_COMPATIBILITY = '{compat}',
   CPPM_LIMITING      = '{lim}',
   DTYPE    = '{dtype}'
@@ -251,6 +279,7 @@ def deck_text(name, dtype, expcnf='channel'):
     `dtype`."""
     mommth, compat, lim, tlim, vlim = DECKS[name]
     return DECK_TEXT.format(name=name, expcnf=expcnf, mommth=mommth,
+                            pgfmth=DECK_PGFMTH.get(name, 'dynamic enthalpy'),
                             compat=compat, lim=lim, tlim=tlim, vlim=vlim,
                             dtype=dtype, **EXPERIMENTS[expcnf])
 
@@ -1991,6 +2020,241 @@ def run_tripolar_parity(dev):
     return ok
 
 
+# ------------------------------------------------ the vertical physics
+
+# KPP with the tidal field and the Langmuir factor on fuk95: a wind
+# stress, a cooling (so that the nonlocal term is active) and seeded
+# fields; its parity step also takes the geopotential PGF
+NSTEPS_KPP = (2, 10)                # warm-up, timed steps
+KPP_TAUX = .1                       # N m-2 at u points
+KPP_SURFLX = 200.                   # W m-2, > 0 cools
+TWEDON_RANGE = (.01, .05)           # kg s-2 over water
+LAMULT_RANGE = (1., 2.)
+PARITY_KPP = dict(itdm=24, jtdm=8, kdm=8)
+# The TKE/GLS closure on the isopycnic fuk95 (two tracer slots, itrtke 0,
+# itrgls 1, as tests/test_tke.py:103-111 builds them)
+NSTEPS_TKE = (1, 3)
+PARITY_TKE = dict(itdm=24, jtdm=8, kdm=10)
+# the slots may fall below their floors only by f32 rounding in the
+# transport and mixing that carry them (1e-5 is ~80 f32 ulps)
+TKE_FLOOR_REL = 1e-5
+
+
+def twedon_path(shape):
+    """build/tidal/twedon_<J>x<I>.npz beside this script."""
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / 'build' / 'tidal'
+    path.mkdir(parents=True, exist_ok=True)
+    return str(path / f'twedon_{shape[0]}x{shape[1]}.npz')
+
+
+def build_kpp(dev, dtype, pgfmth='dynamic enthalpy', **size):
+    """fuk95 with bench.py's physics, KPP and the tidal term: twedon made
+    from SEED in TWEDON_RANGE over water, written to a .npz and read back
+    with read_tidaldissip; the forcing KPP_TAUX, KPP_SURFLX and a seeded
+    Langmuir factor in LAMULT_RANGE."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    from blom_tpu_torch.phys.tidaldissip import read_tidaldissip
+    from blom_tpu_torch.phys.vmix import VmixParams
+    model = standalone.build_fuk95(dtype=dtype, device=dev, **size)
+    g = model.grid
+    H = tuple(g.shape)
+    rng = np.random.default_rng(SEED)
+    ip = g.ip.cpu().double().numpy()
+    path = twedon_path(H)
+    np.savez(path, twedon=rng.uniform(*TWEDON_RANGE, H) * ip)
+    twedon = read_tidaldissip(path, dtype=dtype, device=dev)
+    model.forcing = dataclasses.replace(
+        model.forcing, taux=KPP_TAUX * g.iu, surflx=KPP_SURFLX * g.ip,
+        lamult=torch.as_tensor(rng.uniform(*LAMULT_RANGE, H), dtype=dtype,
+                               device=dev))
+    model.par = model.par._replace(
+        difest=DifestParams(**BENCH_DIFEST), pgfmth=pgfmth,
+        vmix=VmixParams(use_kpp=True, twedon=twedon))
+    return model
+
+
+def kpp_gates(model, s, n):
+    """tests/test_kpp.py on the final state's level n: difest_vertical_kpp
+    leaves the surface interface 0, the nonlocal term active over water
+    (cooling), the OBL depth finite and >= 1 m; the tidal increment of
+    difest_vertical >= 0 and larger at the deepest interior interface
+    than at the shallowest, on the mean over water
+    (tests/test_kpp.py:135-171)."""
+    import torch
+    from blom_tpu_torch.phys.vmix import difest_vertical, difest_vertical_kpp
+    g, par = model.grid, model.par.vmix
+    wet = g.ip > 0
+    vf = difest_vertical_kpp(g, model.e, s, model.forcing, model.swabs, par,
+                             n)
+    tid = difest_vertical(g, model.e, s, model.forcing, model.swabs, par, n)
+    base = difest_vertical(g, model.e, s, model.forcing, model.swabs,
+                           par._replace(twedon=None), n)
+    dk = (tid.Kdiff_t - base.Kdiff_t)[:, wet].double()
+    hbl = vf.mld[wet].double()
+    rec = dict(kdiff_surface_max=float(vf.Kdiff_t[0].abs().max()),
+               nonlocal_max=float(vf.t_ns_nonloc[1:][:, wet].max()),
+               obl_depth_m=[float(hbl.min()), float(hbl.max())],
+               obl_finite=bool(torch.isfinite(vf.mld).all()),
+               tidal_increment_min=float(dk.min()),
+               tidal_increment_mean=[float(dk[1].mean()),
+                                     float(dk[-1].mean())])
+    ok = (rec['kdiff_surface_max'] == 0. and rec['nonlocal_max'] > 0.
+          and rec['obl_finite'] and rec['obl_depth_m'][0] >= 1.
+          and rec['tidal_increment_min'] >= 0.
+          and rec['tidal_increment_mean'][1] > rec['tidal_increment_mean'][0])
+    return ok, rec
+
+
+def run_kpp(dev, paths, syncs):
+    """KPP with the tidal term at the main path's width in f32: warm-up
+    and timed steps, the slice's gates, launches per step as the main
+    path's and host syncs per step no more than its, s/step and
+    grid-points/s, the device time of each phase, then kpp_gates on the
+    final state."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    warm, nsteps = NSTEPS_KPP
+    t0 = time.perf_counter()
+    model = build_kpp(dev, torch.float32, itdm=II, jtdm=JJ, kdm=KK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mass0 = mass(model, model.state.dp[1])
+    standalone.run(model, warm)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    nsync = counts.pop('host_syncs')
+    paths['fuk95_kpp'] = counts
+    ok, rec = slice_gates(model, s, nsteps, mass0)
+    ok &= launches_ok(counts, model.par, nsteps)
+    ok &= nsync / nsteps <= syncs['fuk95']
+    ok_k, rec_k = kpp_gates(model, s, 1 if nsteps % 2 == 0 else 0)
+    ok &= ok_k
+    emit('kpp', shape=[KK, JJ, II], dtype='float32', build_seconds=build_s,
+         warmup_steps=warm, steps=nsteps, ok=ok, **rec, **rec_k,
+         launches=counts, host_syncs_per_step=nsync / nsteps,
+         plain_host_syncs_per_step=syncs['fuk95'],
+         seconds_per_step=wall / nsteps,
+         gridpoints_per_s=II * JJ * KK * nsteps / wall)
+    profile_phases(model, 2, 'kpp_phase_profile')
+    return ok
+
+
+def run_kpp_parity(dev):
+    """One f64 step of each time-level parity with KPP, the tidal field
+    and the geopotential PGF at PARITY_KPP, card against CPU, within
+    STEP_REL."""
+    import torch
+    models = {d: build_kpp(d, torch.float64, 'geopotential', **PARITY_KPP)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev)
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('kpp_parity', ok=ok, tolerance=STEP_REL, size=PARITY_KPP,
+         one_step=one_step)
+    return ok
+
+
+def build_tke(dev, dtype, **size):
+    """The isopycnic fuk95 with bench.py's physics and the TKE/GLS
+    closure: two tracer slots at their minima (init_tke_tracers), itrtke
+    0, itrgls 1."""
+    import torch
+    from blom_tpu_torch.phys.tke import init_tke_tracers
+    model = build_isopyc(dev, dtype, **size)
+    s, g = model.state, model.grid
+    shape = (g.kk,) + tuple(g.shape)
+    s.trc = init_tke_tracers(torch.zeros((2, 2) + shape, dtype=dtype,
+                                         device=dev), 0, 1)
+    s.trcold = torch.zeros((2,) + shape, dtype=dtype, device=dev)
+    model.par = model.par._replace(itrtke=0, itrgls=1)
+    return model
+
+
+def tke_gates(model, s, nsteps):
+    """Over water the TKE and psi slots at their floors or above (within
+    TKE_FLOOR_REL), and TKE above twice its floor somewhere (the bottom
+    friction condition, tests/test_tke.py:103-125)."""
+    import torch
+    from blom_tpu_torch.phys import tke
+    new = 1 if nsteps % 2 == 0 else 0
+    wet = model.grid.ip > 0
+    t = s.trc[new, model.par.itrtke][:, wet].double()
+    q = s.trc[new, model.par.itrgls][:, wet].double()
+    rec = dict(finite_trc=bool(torch.isfinite(s.trc).all()),
+               tke=[float(t.min()), float(t.max())],
+               gls=[float(q.min()), float(q.max())],
+               tke_min=tke.tke_min, gls_psi_min=tke.gls_psi_min)
+    lo = 1. - TKE_FLOOR_REL
+    ok = (rec['finite_trc'] and rec['tke'][0] >= tke.tke_min * lo
+          and rec['gls'][0] >= tke.gls_psi_min * lo
+          and rec['tke'][1] > 2. * tke.tke_min)
+    return ok, rec
+
+
+def run_tke(dev, paths, syncs, results):
+    """The TKE/GLS closure on the isopycnic path at the main path's width
+    in f32: warm-up and timed steps, the isopycnic gates and tke_gates,
+    launches per step (CPPM 2, momentum 1), every CPPM launch carrying 4
+    fields, s/step and grid-points/s, the device time of each phase; then
+    the CPPM sweep at nt 4 on the inputs of one step of this run
+    (check_tracer_kernels, phase 'tke')."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    warm, nsteps = NSTEPS_TKE
+    t0 = time.perf_counter()
+    model = build_tke(dev, torch.float32, itdm=II, jtdm=JJ, kdm=KK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mass0 = mass(model, model.state.dp[1])
+    s_warm, clock = standalone.run(model, warm)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    s, _ = standalone.run(model, nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    nsync = counts.pop('host_syncs')
+    paths['fuk95_tke'] = counts
+    ok, rec = isopyc_gates(model, s, nsteps, mass0)
+    ok_t, rec_t = tke_gates(model, s, nsteps)
+    ok &= ok_t and launches_ok(counts, model.par, nsteps)
+    ok &= counts['carried'] == {'cppm_sweep': {4: 2 * nsteps},
+                                'ale_remap': {}}
+    emit('tke', shape=[KK, JJ, II], dtype='float32', build_seconds=build_s,
+         warmup_steps=warm, steps=nsteps, ok=ok, **rec, **rec_t,
+         launches=counts, host_syncs_per_step=nsync / nsteps,
+         plain_host_syncs_per_step=syncs['fuk95_isopyc'],
+         seconds_per_step=wall / nsteps,
+         gridpoints_per_s=II * JJ * KK * nsteps / wall)
+    profile_phases(model, 1, 'tke_phase_profile')
+    ok &= check_tracer_kernels(model, s_warm, clock.delt1, results, 'tke')
+    return ok
+
+
+def run_tke_parity(dev):
+    """One f64 step of each time-level parity with the closure at
+    PARITY_TKE, card against CPU, within STEP_REL, the two slots one by
+    one among the fields."""
+    import torch
+    models = {d: build_tke(d, torch.float64, **PARITY_TKE)
+              for d in (dev, 'cpu')}
+    one_step = one_step_parity(models, dev, PARITY_FIELDS + ('trc',))
+    ok = all(r <= STEP_REL for _, r in one_step.values())
+    emit('tke_parity', ok=ok, tolerance=STEP_REL, size=PARITY_TKE,
+         one_step=one_step)
+    return ok
+
+
 # ------------------------------------------------------------------ decks
 
 def deck_path(name, dtype, expcnf):
@@ -2078,6 +2342,9 @@ def run_deck(dev, name, expcnf, paths):
          host_syncs_per_step=syncs / nsteps,
          seconds_per_step=wall / nsteps,
          gridpoints_per_s=npts * nsteps / wall)
+    if expcnf == 'fuk95' and name in DECK_PGFMTH:
+        # the geopotential PGF's device time beside the other phases
+        profile_phases(model, 2, f'deck_fuk95_{name}_phase_profile')
     del model, s
     if expcnf != 'channel':
         return ok
@@ -2247,6 +2514,10 @@ def main():
     ok &= run_tripolar(dev, paths, syncs, tripolar_results)
     ok &= run_tripolar_symmetry(dev)
     ok &= run_tripolar_parity(dev)
+    ok &= run_kpp(dev, paths, syncs)
+    ok &= run_kpp_parity(dev)
+    ok &= run_tke(dev, paths, syncs, tracer_results)
+    ok &= run_tke_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)

@@ -615,9 +615,6 @@ def test_step_matches_blom_tpu(models, egc):
 
 
 @pytest.mark.parametrize('change', [
-    dict(itrtke=0), dict(itrgls=0),
-    dict(vmix=tvm.VmixParams(use_kpp=True)),
-    dict(vmix=tvm.VmixParams(twedon=1.)),
     dict(thermf=tstep.ThermfParams(srxday=30.)), dict(advmth='remap')])
 def test_isopyc_refusals_name_the_path(models, change):
     """What the port does not run, the isopycnic path refuses too, and
@@ -628,3 +625,27 @@ def test_isopyc_refusals_name_the_path(models, change):
         tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
                         tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.,
                         tm.swabs)
+
+
+@pytest.mark.parametrize('option', ['itrtke', 'itrgls', 'kpp', 'tidal'])
+def test_isopyc_vertical_physics_options_match_blom_tpu(models, option):
+    """The options the isopycnic path once refused: the TKE closure
+    (itrtke 0, psi diagnostic from the last slot), a GLS slot alone
+    (itrgls 0 without itrtke: no closure in either package), KPP and the
+    tidal term (a float twedon).  One step of each, phase by phase from
+    blom_tpu's state before each phase (test_torch_kpp.py's VRef), within
+    TOL (barotp 1e-8)."""
+    from tests.test_torch_kpp import (ISOPYC_PHASES, VRef, phase_errors,
+                                      with_vertical_physics)
+    from tests.test_torch_tke import with_tke_slots
+    jm, tm = models
+    if option in ('itrtke', 'itrgls'):
+        jm, tm = with_tke_slots(jm, tm, *((0, -1) if option == 'itrtke'
+                                          else (-1, 0)))
+    else:
+        vmix = dict(twedon=1.) if option == 'tidal' else dict(use_kpp=True)
+        jm, tm = with_vertical_physics(jm, tm, vmix, {})
+    tstep.check_supported(tm.grid, tm.par)
+    rec, _ = VRef(jm, 'isopyc').run(1, ISOPYC_PHASES)
+    assert any(r[1] == 'tke' for r in rec) == (option == 'itrtke')
+    assert not phase_errors(rec, tm, 'isopyc', nsteps=1, forced=False)

@@ -186,11 +186,16 @@ def test_difest_vertical(case):
                               N)
     assert tvm.VmixParams()._asdict() == jvm.VmixParams()._asdict()
     _same(out, ref)
+    # use_kpp is the step's choice (difest_vertical ignores it); twedon
+    # adds the tidal term
     for change in (dict(use_kpp=True), dict(twedon=1.)):
-        with pytest.raises(NotImplementedError):
-            tvm.difest_vertical(case['tg'], case['te'], case['ts'](),
-                                case['tf'], case['tswabs'],
-                                tvm.VmixParams(**change), N)
+        ref = jvm.difest_vertical(case['g'], case['e'], case['s'],
+                                  case['f'], case['swabs'],
+                                  jvm.VmixParams(**change), N)
+        out = tvm.difest_vertical(case['tg'], case['te'], case['ts'](),
+                                  case['tf'], case['tswabs'],
+                                  tvm.VmixParams(**change), N)
+        _same(out, ref)
 
 
 def test_ale_vdifft(case):

@@ -290,11 +290,8 @@ def test_entry_point_needs_cuda_or_device(monkeypatch):
 @pytest.mark.parametrize('change', [
     dict(ale=tal.make_ale_params(8)._replace(regrid_method='direct')),
     dict(ale=tal.make_ale_params(8)._replace(reconstruction_method='pqm')),
-    dict(vmix=tvm.VmixParams(use_kpp=True)),
-    dict(vmix=tvm.VmixParams(twedon=1.)),
     dict(ltedtp='neutral', difest=tdf.DifestParams(egc=.85, egmndf=100.)),
-    dict(vcoord_isopyc=True, vmix=tvm.VmixParams(use_kpp=True)),
-    dict(advmth='remap'), dict(itrtke=0),
+    dict(advmth='remap'),
     dict(thermf=tstep.ThermfParams(trxday=30.))])
 def test_unported_phases_raise(models, change):
     _, tm = models
@@ -302,6 +299,34 @@ def test_unported_phases_raise(models, change):
     with pytest.raises(NotImplementedError):
         tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
                         tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.)
+
+
+@pytest.mark.parametrize('option', ['kpp', 'tidal', 'isopyc_kpp',
+                                    'itrtke'])
+def test_vertical_physics_options_match_blom_tpu(full_models, option):
+    """The options the port once refused here: KPP, the tidal term (a
+    float twedon), KPP on the isopycnic coordinate and the TKE slots on
+    the ALE path (where neither package runs the closure).  One step of
+    each, phase by phase from blom_tpu's state before each phase
+    (test_torch_kpp.py's VRef), within 1e-12 (barotp 1e-8)."""
+    from tests.test_torch_kpp import (ISOPYC_PHASES, VRef, phase_errors,
+                                      with_vertical_physics)
+    from tests.test_torch_tke import with_tke_slots
+    coord = 'isopyc' if option == 'isopyc_kpp' else 'ale'
+    if coord == 'isopyc':
+        jm = jst.build_fuk95(vcoord='isopyc_bulkml', **SIZE)
+        tm = tst.build_fuk95(vcoord='isopyc_bulkml', device='cpu', **SIZE)
+    else:
+        jm, tm = full_models
+    if option == 'itrtke':
+        jm, tm = with_tke_slots(jm, tm, 0, -1)
+    else:
+        vmix = dict(twedon=1.) if option == 'tidal' else dict(use_kpp=True)
+        jm, tm = with_vertical_physics(jm, tm, vmix, {})
+    tstep.check_supported(tm.grid, tm.par)
+    rec, _ = VRef(jm, coord).run(
+        1, ISOPYC_PHASES if coord == 'isopyc' else FULL_PHASES)
+    assert not phase_errors(rec, tm, coord, nsteps=1, forced=False)
 
 
 # ------------------------------------------------- the full default step
