@@ -1,27 +1,38 @@
 """ALE vertical regridding and remapping.
 
-Counterpart of the nudge path of `blom_tpu/dynamics/ale.py` (BLOM's
+Counterpart of `blom_tpu/dynamics/ale.py` (BLOM's
 mod_ale_regrid_remap.F90:1486-1984 ale_regrid_remap).  Per step, for the
 cntiso_hybrid vertical coordinate:
 
-1. reconstruct the T/S profiles (PPM) and nudge the interface pressures
-   toward the interface reference densities, keeping the minimum
-   near-surface thicknesses (regrid_cntiso_hybrid_nudge_jslice,
-   :560-916);
+1. reconstruct the T/S profiles and regrid: nudge the interface
+   pressures toward the interface reference densities, keeping the
+   minimum near-surface thicknesses (REGRID_METHOD 'nudge',
+   regrid_cntiso_hybrid_nudge_jslice, :560-916), or place them where a
+   monotone reconstruction of the density crosses the targets ('direct',
+   regrid_cntiso_hybrid_direct_jslice, :286-560, in blom_tpu's form);
 2. smooth weakly stratified interfaces laterally (regrid_smooth_jslice,
    :946-1020);
 3. remap the tracers onto the new grid, recompute dpu/dpv and remap the
    velocities (:1022-1057, :1760-1960).
 
-Steps 1 and 3 are column-local.  On CUDA tensors each runs as one
-hand-written kernel (ale_cuda: csrc/ale_regrid.cu for 1, csrc/ale_remap.cu
-for 3); on CPU tensors as `regrid_plain` and `remap_plain`'s PyTorch
-code, which copies blom_tpu's CPU path: T, S and the tracers are
-reconstructed once and the reconstructions serve the regrid and the
-remap, and the monotonic clamp of the regrid is the sequential scan
-(blom_tpu's clamp_impl='scan'; its TPU kernel uses the cummax form,
-about one ULP of the pressure apart).  The direct regrid and the
-implicit-edge reconstructions are not ported."""
+The reconstruction is RECONSTRUCTION_METHOD's (`_recon`): 'pqm',
+'ppm_ih4', or explicit-edge PPM for any other name, as in blom_tpu.
+
+Steps 1 and 3 are column-local.  A CUDA tensor goes through the two
+hand-written kernels of ale_cuda (csrc/ale_regrid.cu for 1,
+csrc/ale_remap.cu for 3) exactly where blom_tpu's `_ale_pallas_ok` takes
+its Pallas kernels for the method: reconstruction_method 'ppm' with
+regrid_method 'nudge', the two schemes the kernels compute
+(`ale_kernels_ok`).  Nothing else decides it: no environment switch,
+dtype test or fallback, so that path on a CUDA tensor runs the kernels
+or raises.  Every other method runs the plain PyTorch functions below,
+on the card as on the CPU, as blom_tpu runs them as XLA.  On CPU tensors
+the nudge path is `regrid_plain` and `remap_plain`'s PyTorch code, which
+copies blom_tpu's CPU path: T, S and the tracers are reconstructed once
+and the reconstructions serve the regrid and the remap, and the
+monotonic clamp of the regrid is the sequential scan (blom_tpu's
+clamp_impl='scan'; its TPU kernel uses the cummax form, about one ULP of
+the pressure apart)."""
 
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import eos
-from ..core.constants import epsilp, onem
+from ..core.constants import epsilp, grav, onem
 from ..core.grid import Grid
 from ..core.state import State, cumulative_p, dpu_dpv_upstream
 from ..ops import hor3map as h3
@@ -47,14 +58,15 @@ class AleParams(NamedTuple):
     velocity_limiting: str = h3.NON_OSCILLATORY
     tracer_pc_upper: bool = True
     velocity_pc_upper: bool = True
-    # 'ppm' | 'ppm_ih4' | 'pqm' (RECONSTRUCTION_METHOD); only 'ppm' is
-    # ported
+    # 'ppm' (explicit edges) | 'ppm_ih4' (implicit 4th-order edges) |
+    # 'pqm' (implicit 6th/5th-order quartic): RECONSTRUCTION_METHOD and
+    # the bndr_ord options (mod_ale_regrid_remap.F90:62-81)
     reconstruction_method: str = 'ppm'
     upper_bndr_ord: int = 6
     lower_bndr_ord: int = 4
-    # 'nudge' | 'direct' (REGRID_METHOD); only 'nudge' is ported
+    # 'nudge' | 'direct' (REGRID_METHOD, mod_ale_regrid_remap.F90:68)
     regrid_method: str = 'nudge'
-    bfsq_min: float = 1.e-7
+    bfsq_min: float = 1.e-7   # monotonization slope floor [s-2]
 
 
 def make_ale_params(kk: int, dpmin_surface_m: float = 1.5,
@@ -82,43 +94,64 @@ def make_ale_params(kk: int, dpmin_surface_m: float = 1.5,
                      reconstruction_method=reconstruction_method)
 
 
-def unported_ale(ale: AleParams) -> list:
-    """The ALE options set in `ale` that the port does not run."""
-    missing = []
-    if ale.regrid_method != 'nudge':
-        missing.append(f'ALE regrid_method={ale.regrid_method!r}')
-    if ale.reconstruction_method != 'ppm':
-        missing.append('ALE reconstruction_method='
-                       f'{ale.reconstruction_method!r}')
-    return missing
-
-
 LIMITERS = (h3.MONOTONIC, h3.NON_OSCILLATORY, h3.NON_OSCILLATORY_POSDEF)
 
 
 def check_ale(ale: AleParams):
-    """Raise ValueError for a limiting that is not one of the three PPM
-    limiters, NotImplementedError naming the ALE options not ported."""
+    """Raise ValueError for a limiting that is not one of the three
+    limiters."""
     for name in ('tracer_limiting', 'velocity_limiting'):
         if getattr(ale, name) not in LIMITERS:
             raise ValueError(f'ALE {name}={getattr(ale, name)!r}: expected '
                              f'one of {LIMITERS}')
-    missing = unported_ale(ale)
-    if missing:
-        raise NotImplementedError('not ported to blom_tpu_torch: '
-                                  + '; '.join(missing))
+
+
+def ale_kernels_ok(ale: AleParams) -> bool:
+    """Whether kernels K1 and K2 compute this method: explicit-edge PPM
+    with the nudge regrid, the method blom_tpu's `_ale_pallas_ok` sends
+    to its Pallas kernels."""
+    return (ale.reconstruction_method == 'ppm'
+            and ale.regrid_method == 'nudge')
+
+
+def check_kernel_method(ale: AleParams):
+    """Raise ValueError unless kernels K1 and K2 (and their plain
+    versions) compute this method and its limiters."""
+    check_ale(ale)
+    if not ale_kernels_ok(ale):
+        raise ValueError(
+            'ALE kernels K1 and K2 compute explicit-edge PPM with the '
+            'nudge regrid, not reconstruction_method='
+            f'{ale.reconstruction_method!r} with regrid_method='
+            f'{ale.regrid_method!r}')
 
 
 def _recon(ale: AleParams, p, tm, limiting, pc_upper=False,
            pc_lower=False):
-    check_ale(ale)
+    """Reconstruction dispatch (RECONSTRUCTION_METHOD,
+    mod_ale_regrid_remap.F90:62-81): PQM with ih6/ih5 implicit edges and
+    slopes, implicit-edge ih4 PPM, or explicit-edge PPM for any other
+    name."""
+    m = ale.reconstruction_method
+    if m == 'pqm':
+        return h3.pqm_reconstruct(p, tm, limiting, pc_upper, pc_lower,
+                                  lb_ord=ale.upper_bndr_ord,
+                                  rb_ord=ale.lower_bndr_ord)
+    if m == 'ppm_ih4':
+        return h3.ppm_ih4_reconstruct(p, tm, limiting, pc_upper, pc_lower,
+                                      lb_ord=min(ale.upper_bndr_ord, 4),
+                                      rb_ord=min(ale.lower_bndr_ord, 4))
     return h3.ppm_reconstruct(p, tm, limiting, pc_upper, pc_lower)
 
 
 def _recon_multi(ale: AleParams, p, tms, limiting, pc_upper=False,
                  pc_lower=False):
-    check_ale(ale)
-    return h3.ppm_reconstruct_multi(p, tms, limiting, pc_upper, pc_lower)
+    """Reconstruct several fields on the shared interfaces p; explicit-
+    edge PPM computes its grid-only edge weights once."""
+    if ale.reconstruction_method == 'ppm':
+        return h3.ppm_reconstruct_multi(p, tms, limiting, pc_upper,
+                                        pc_lower)
+    return [_recon(ale, p, tm, limiting, pc_upper, pc_lower) for tm in tms]
 
 
 def _sigma_at(p_src, sig_up, sig_lo, pq):
@@ -266,6 +299,99 @@ def regrid_nudge(kk: int, e: eos.EosParams, ale: AleParams, p_src,
     return p_dst, smooth_fac
 
 
+def regrid_direct(grid: Grid, e: eos.EosParams, ale: AleParams, p_src,
+                  sigma_n, sigmar):
+    """Direct regrid: the interfaces where a monotone reconstruction of
+    the column's potential density crosses the interface target
+    densities (regrid_cntiso_hybrid_direct_jslice,
+    mod_ale_regrid_remap.F90:286-560), in blom_tpu's form, not the
+    reference's loops: the run-merge monotonization is a fixed-iteration
+    Jacobi pairwise merge with the same dp-weighted means and beta/2
+    slope floor, and the surface transition zone takes the plevel
+    minimum clamp (the nudge path's pmin) in place of the quadratic
+    blending of :530-556.  Returns (p_dst, smooth_fac)."""
+    kk = grid.kk
+    H = p_src.shape[1:]
+    dev = p_src.device
+    p_bot = p_src[kk]
+    beta = ale.bfsq_min / (grav * grav)
+
+    # monotonize the density with the beta/2 slope floor (:337-402):
+    # Jacobi pairwise merges
+    sig = sigma_n
+    dp_src = torch.clamp(p_src[1:] - p_src[:-1], min=0.)
+    span = p_src[2:] - p_src[:-2]                  # (kk-1, H)
+    kidx = torch.arange(kk - 1, device=dev).reshape((kk - 1,)
+                                                    + (1,) * len(H))
+    wsum = dp_src[:-1] + dp_src[1:]
+    for it in range(kk):
+        # merge the violating pairs (k, k+1), k = it % 2, it % 2 + 2, ...,
+        # into their dp-weighted mean with the beta/2 slope restored
+        viol = (sig[1:] - sig[:-1]) < .5 * beta * span
+        act = viol & ((kidx % 2) == it % 2)
+        smean = (sig[:-1] * dp_src[:-1] + sig[1:] * dp_src[1:]) \
+            / torch.clamp(wsum, min=epsilp)
+        up = smean + .5 * beta * (p_src[1:-1] - p_src[2:])
+        lo = smean + .5 * beta * (p_src[1:-1] - p_src[:-2])
+        new_up = torch.where(act, up, sig[:-1])
+        new_lo = torch.where(act, lo, sig[1:])
+        sig = torch.cat([new_up[:1],
+                         torch.where(act[1:], up[1:], new_lo[:-1]),
+                         new_lo[-1:]], 0)
+
+    # monotone reconstruction and root-finding regrid
+    rc_sig = h3.ppm_reconstruct(p_src, sig, h3.MONOTONIC)
+    sig_trg = torch.cat([sigmar, sigmar[-1:]], 0)
+    p_cand = h3.regrid_crossings(rc_sig, sig_trg)      # (kk+1, H)
+
+    # boundedness (:424-441): leading missing values go to the column
+    # top, trailing ones to the bottom
+    found = p_cand > .5 * h3.REGRID_MVAL
+    lead = torch.cumsum(found.to(torch.int32), 0) == 0
+    trail = torch.flip(torch.cumsum(torch.flip(found, (0,)).to(torch.int32),
+                                    0), (0,)) == 0
+    p_cand = torch.where(lead, p_src[:1], p_cand)
+    p_cand = torch.where(trail & (~lead), p_bot[None], p_cand)
+
+    # all missing (:445-461): the column goes into the layer whose
+    # target-density bounds bracket its mean density
+    none_found = ~found.any(0)
+    smean_col = (sig * dp_src).sum(0) \
+        / torch.clamp(p_bot - p_src[0], min=epsilp)
+    kidx1 = torch.arange(1, kk + 1, device=dev).reshape((kk,)
+                                                        + (1,) * len(H))
+    # the first 1-based k in [2, kk] with smean < sig_trg(k); every
+    # interface >= ks goes to the bottom
+    cond = (smean_col[None] < sig_trg[1:]) & (kidx1 >= 2)
+    ks = torch.where(cond.any(0),
+                     torch.argmax(cond.to(torch.int32), 0) + 1, kk + 1)
+    qidx = torch.arange(kk + 1, device=dev).reshape((kk + 1,)
+                                                    + (1,) * len(H))
+    fallback = torch.where(qidx >= ks[None], p_bot[None], p_src[:1])
+    p_cand = torch.where(none_found[None], fallback, p_cand)
+
+    # plevel surface minima and the minimum-thickness monotone clamp
+    # (:466-556 simplified, the nudge path's machinery)
+    plevel = torch.tensor(ale.plevel, dtype=p_src.dtype, device=dev)
+    pmin = torch.minimum(plevel.reshape((kk,) + (1,) * len(H)) + p_src[0],
+                         p_bot)
+    dpmin = min(ale.plevel[1] - ale.plevel[0], ale.dpmin_interior)
+    prev = p_src[0]
+    mids = []
+    for k in range(kk):
+        prev = torch.minimum(torch.maximum(torch.maximum(p_cand[1 + k],
+                                                         pmin[k]),
+                                           prev + dpmin), p_bot)
+        mids.append(prev)
+    p_dst = torch.stack([p_src[0]] + mids[:-1] + [p_bot], 0)
+    # smoothing only where the interface sits at its plevel minimum
+    at_pmin = (p_dst[1:-1] - pmin[:-1]).abs() < 1e-6
+    sfac = at_pmin.to(p_src.dtype)
+    smooth_fac = torch.cat([torch.ones_like(sfac[:1]), sfac,
+                            torch.zeros_like(sfac[:1])], 0)
+    return p_dst, smooth_fac
+
+
 def regrid_smooth(grid: Grid, ale: AleParams, p_dst, smooth_fac, delt1):
     """Flux-limited lateral diffusion of weakly stratified interfaces
     (regrid_smooth_jslice, :946-1020)."""
@@ -310,6 +436,7 @@ def regrid_plain(e: eos.EosParams, ale: AleParams, p_src, temp, saln,
     """What kernel K1 (csrc/ale_regrid.cu) computes, in PyTorch: the PPM
     reconstruction of T and S on p_src and the nudge regrid.  Returns
     (p_dst, smooth_fac)."""
+    check_kernel_method(ale)
     rc_t, rc_s = _recon_multi(ale, p_src, [temp, saln], ale.tracer_limiting,
                               pc_upper=ale.tracer_pc_upper)
     return regrid_nudge(p_src.shape[0] - 1, e, ale, p_src, rc_t, rc_s,
@@ -334,6 +461,7 @@ def remap_plain(ale: AleParams, p_src, tms, pu_q, u, pv_q, v, p_dst,
     reconstructions of the tracers tms on p_src, of u on pu_q and of v on
     pv_q, remapped onto p_dst, pu_new and pv_new.  Returns (means,
     u_mean, v_mean)."""
+    check_kernel_method(ale)
     rcs_p = _recon_multi(ale, p_src, list(tms), ale.tracer_limiting,
                          pc_upper=ale.tracer_pc_upper)
     return _remap_recons(ale, rcs_p, pu_q, u, pv_q, v, p_dst, pu_new,
@@ -343,8 +471,9 @@ def remap_plain(ale: AleParams, p_src, tms, pu_q, u, pv_q, v, p_dst,
 def ale_regrid_remap(grid: Grid, e: eos.EosParams, ale: AleParams,
                      s: State, m: int, n: int, delt1) -> State:
     """The ALE step (ale_regrid_remap, :1486-1984), in place on time
-    level n.  CUDA tensors go through the two kernels of ale_cuda, CPU
-    tensors through the plain path."""
+    level n.  CUDA tensors go through the two kernels of ale_cuda where
+    `ale_kernels_ok`, through the plain functions otherwise; CPU tensors
+    through the plain functions."""
     check_ale(ale)
     kk = grid.kk
     ip, iu, iv = grid.ip, grid.iu, grid.iv
@@ -354,17 +483,22 @@ def ale_regrid_remap(grid: Grid, e: eos.EosParams, ale: AleParams,
     p_bot = p_src[kk]
     ntr = s.trc.shape[1]
     tms = [s.temp[n], s.saln[n]] + [s.trc[n, t] for t in range(ntr)]
-    on_card = p_src.is_cuda
+    use_kernels = p_src.is_cuda and ale_kernels_ok(ale)
 
-    if on_card:
+    # REGRID_METHOD dispatch (mod_ale_regrid_remap.F90:68); the plain
+    # paths reconstruct the tracers once for the regrid and the remap
+    if use_kernels:
         from .ale_cuda import regrid_cuda
         p_dst, smooth_fac = regrid_cuda(e, ale, p_src, s.temp[n],
                                         s.saln[n], s.sigmar, delt1)
     else:
         rcs_p = _recon_multi(ale, p_src, tms, ale.tracer_limiting,
                              pc_upper=ale.tracer_pc_upper)
-        p_dst, smooth_fac = regrid_nudge(kk, e, ale, p_src, rcs_p[0],
-                                         rcs_p[1], s.sigmar, delt1)
+        p_dst, smooth_fac = (
+            regrid_direct(grid, e, ale, p_src, s.sigma[n], s.sigmar)
+            if ale.regrid_method == 'direct' else
+            regrid_nudge(kk, e, ale, p_src, rcs_p[0], rcs_p[1], s.sigmar,
+                         delt1))
 
     if ale.smooth_diff_max > 0.:
         p_dst = regrid_smooth(grid, ale, p_dst, smooth_fac, delt1)
@@ -383,7 +517,7 @@ def ale_regrid_remap(grid: Grid, e: eos.EosParams, ale: AleParams,
     qv = torch.minimum(jm1(p_bot), p_bot) \
         / torch.clamp(pv_old[kk], min=epsilp)
 
-    if on_card:
+    if use_kernels:
         from .ale_cuda import remap_cuda
         means, u_mean, v_mean = remap_cuda(
             ale, p_src, tms, pu_old * qu, s.u[n], pv_old * qv, s.v[n],

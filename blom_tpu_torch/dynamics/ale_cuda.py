@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from .ale import LIMITERS, check_ale
+from .ale import LIMITERS, check_kernel_method
 
 regrid_launches = dict.fromkeys(LIMITERS, 0)
 remap_launches = {(t, v): 0 for t in LIMITERS for v in LIMITERS}
@@ -38,8 +38,9 @@ def _fn(name, dtype, nargs):
 
 def _check(ale, named, ref):
     """Raise unless every tensor lies on ref's CUDA device with ref's
-    float dtype and is contiguous, and the ALE options are ported."""
-    check_ale(ale)
+    float dtype and is contiguous, and the kernels compute the ALE
+    method."""
+    check_kernel_method(ale)
     if ref.dtype not in _DTYPES:
         raise TypeError(f'unsupported dtype {ref.dtype}')
     for name, t in named.items():

@@ -43,7 +43,7 @@ from ..phys.swabs import SwabsFields
 from ..phys.vmix import VmixParams, difest_vertical, difest_vertical_kpp
 from ..tracers.idlage import idlage_step
 from .advect import advect
-from .ale import AleParams, ale_regrid_remap, unported_ale
+from .ale import AleParams, ale_regrid_remap
 from .ale_vdiff import ale_vdifft, ale_vdiffm
 from .barotp import BarotpParams, barotp
 from .cmnfld import cmnfld
@@ -103,14 +103,11 @@ def _diffus_on(par: StepParams) -> bool:
 
 def check_supported(grid: Grid, par: StepParams):
     """Raise NotImplementedError, naming the option, for anything this
-    port does not run: the direct regrid and reconstructions other than
-    PPM, neutral diffusion, other advection schemes and surface
-    restoring.  On the isopycnic path the message says so; that path
-    runs no regrid and diffuses along layers whatever ltedtp says, as
-    blom_tpu's step does."""
+    port does not run: neutral diffusion, other advection schemes and
+    surface restoring.  On the isopycnic path the message says so; that
+    path diffuses along layers whatever ltedtp says, as blom_tpu's step
+    does."""
     missing = []
-    if par.ale is not None and not par.vcoord_isopyc:
-        missing += unported_ale(par.ale)
     if _diffus_on(par) and par.ltedtp == 'neutral' \
             and not par.vcoord_isopyc:
         missing.append("neutral diffusion (ltedtp='neutral')")

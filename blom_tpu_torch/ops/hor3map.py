@@ -1,18 +1,20 @@
-"""1-D vertical reconstruction and remap: the ALE main-path subset.
+"""1-D vertical reconstruction, regrid and remap.
 
-Counterpart of `blom_tpu/ops/hor3map.py` (BLOM's mod_hor3map.F90) for
-what the nudge regrid and the remap of the ALE step use: explicit
-4th-order PPM edges, the monotonic, non-oscillatory and positive-definite
-limiters, and the fused multi-group remap; and `remap_means`, the
-single-field remap of convec's velocities.  Arrays are (kk[+1], ...)
-with the vertical axis leading, and every operation is the JAX
-package's, in its order, so that f64 results agree to rounding.  The
-k-scans are Python loops over the leading axis.  The implicit-edge
-reconstructions (ppm_ih4, PQM) and the root-finding regrid are not
-ported.
+Counterpart of `blom_tpu/ops/hor3map.py` (BLOM's mod_hor3map.F90):
+PPM with explicit 4th-order edges (the ALE main path), PPM with
+implicit ih4 edges, PQM with implicit ih6/ih5 edges and slopes, the
+monotonic, non-oscillatory and positive-definite limiters, the
+root-finding regrid (`regrid_crossings`), and the remaps: the fused
+multi-group `remap_groups` and the single-field `remap_means`.  Arrays
+are (kk[+1], ...) with the vertical axis leading, and every operation is
+the JAX package's, in its order, so that f64 results agree to rounding.
+The k-scans are Python loops over the leading axis; the small per-edge
+moment systems are batched `torch.linalg.solve_ex` calls, as blom_tpu's
+are batched `jnp.linalg.solve` calls.  A limiting name other than the
+three limiters leaves a reconstruction unlimited, as in blom_tpu.
 
 Within layer k a reconstruction is f(x) = c0 + c1*x + c2*x^2 for the
-normalized x in [0, 1]."""
+normalized x in [0, 1], plus c3*x^3 + c4*x^4 for PQM."""
 
 from __future__ import annotations
 
@@ -48,11 +50,14 @@ def _next(a):
 
 
 class Recon(NamedTuple):
-    """Piecewise-parabolic reconstruction on a source grid."""
+    """Piecewise-polynomial reconstruction on a source grid: parabolic
+    (c3 = c4 = None) or quartic (PQM)."""
     p: torch.Tensor      # (kk+1, ...) source interface positions
     c0: torch.Tensor     # (kk, ...) polynomial coefficients
     c1: torch.Tensor
     c2: torch.Tensor
+    c3: torch.Tensor = None
+    c4: torch.Tensor = None
 
     def eval0(self):
         """Upper-interface values (peval0)."""
@@ -60,7 +65,10 @@ class Recon(NamedTuple):
 
     def eval1(self):
         """Lower-interface values (peval1)."""
-        return self.c0 + self.c1 + self.c2
+        v = self.c0 + self.c1 + self.c2
+        if self.c3 is not None:
+            v = v + self.c3 + self.c4
+        return v
 
     def deval0(self):
         """d/dx at the upper interface (dpeval0)."""
@@ -68,7 +76,10 @@ class Recon(NamedTuple):
 
     def deval1(self):
         """d/dx at the lower interface (dpeval1)."""
-        return self.c1 + 2. * self.c2
+        v = self.c1 + 2. * self.c2
+        if self.c3 is not None:
+            v = v + 3. * self.c3 + 4. * self.c4
+        return v
 
 
 def edge4_weights(dx):
@@ -307,18 +318,24 @@ def _limit_nosc(tm, tel, ter, dx):
     return _parabola_limit(tm, tel, ter, need)
 
 
-def ppm_reconstruct(p, tm, limiting=NON_OSCILLATORY, pc_upper=False,
-                    pc_lower=False, edge_weights=None) -> Recon:
-    """PPM reconstruction of the layer means tm (kk, ...) on the
-    interfaces p (kk+1, ...).  pc_upper/pc_lower make the top/bottom
-    layer piecewise constant; edge_weights are edge4_weights(dx) when
-    several fields share the grid."""
+def _pc_mask(tm, dx, pc_upper, pc_lower):
+    """Cells reconstructed piecewise constant: the top/bottom layer when
+    asked, and every vanishing layer."""
     kk = tm.shape[0]
-    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
-    e = _edge4(dx, tm, edge_weights)
-    tel = e[:-1]
-    ter = e[1:]
+    kidx = _kidx(kk, tm.ndim, tm.device)
+    pc_mask = torch.zeros_like(tm, dtype=torch.bool)
+    if pc_upper:
+        pc_mask = pc_mask | (kidx == 0)
+    if pc_lower:
+        pc_mask = pc_mask | (kidx == kk - 1)
+    return pc_mask | (dx <= 2. * heps)
 
+
+def _ppm_from_edges(p, tm, dx, e, limiting, pc_upper, pc_lower) -> Recon:
+    """The parabolas of the cell means tm (kk, ...) from the edge values e
+    (kk+1, ...): the limiter `limiting` (none for another name), then
+    piecewise-constant top/bottom and vanishing layers."""
+    tel, ter = e[:-1], e[1:]
     if limiting == MONOTONIC:
         tel, ter = _limit_mono(tm, tel, ter, dx)
         tel, ter = _limit_boundary(tm, tel, ter, dx, pc_upper, pc_lower)
@@ -328,20 +345,22 @@ def ppm_reconstruct(p, tm, limiting=NON_OSCILLATORY, pc_upper=False,
         if limiting == NON_OSCILLATORY_POSDEF:
             tel, ter = _limit_posdef(tm, tel, ter)
 
-    kidx = _kidx(kk, tm.ndim, tm.device)
-    pc_mask = torch.zeros_like(tm, dtype=torch.bool)
-    if pc_upper:
-        pc_mask = pc_mask | (kidx == 0)
-    if pc_lower:
-        pc_mask = pc_mask | (kidx == kk - 1)
-    pc_mask = pc_mask | (dx <= 2. * heps)      # vanishing layers
+    pc_mask = _pc_mask(tm, dx, pc_upper, pc_lower)
     tel = torch.where(pc_mask, tm, tel)
     ter = torch.where(pc_mask, tm, ter)
+    return Recon(p=p, c0=tel, c1=6. * tm - 4. * tel - 2. * ter,
+                 c2=3. * (tel - 2. * tm + ter))
 
-    c0 = tel
-    c1 = 6. * tm - 4. * tel - 2. * ter
-    c2 = 3. * (tel - 2. * tm + ter)
-    return Recon(p=p, c0=c0, c1=c1, c2=c2)
+
+def ppm_reconstruct(p, tm, limiting=NON_OSCILLATORY, pc_upper=False,
+                    pc_lower=False, edge_weights=None) -> Recon:
+    """PPM reconstruction of the layer means tm (kk, ...) on the
+    interfaces p (kk+1, ...).  pc_upper/pc_lower make the top/bottom
+    layer piecewise constant; edge_weights are edge4_weights(dx) when
+    several fields share the grid."""
+    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
+    return _ppm_from_edges(p, tm, dx, _edge4(dx, tm, edge_weights),
+                           limiting, pc_upper, pc_lower)
 
 
 def ppm_reconstruct_multi(p, tms, limiting=NON_OSCILLATORY,
@@ -354,13 +373,34 @@ def ppm_reconstruct_multi(p, tms, limiting=NON_OSCILLATORY,
                             edge_weights=w) for tm in tms]
 
 
+def integrate_to(rc: Recon, pq):
+    """I(pq), the integral of the reconstruction from the column top to
+    the positions pq (nq, ...), accumulated over the source layers in
+    order."""
+    dx = torch.clamp(rc.p[1:] - rc.p[:-1], min=0.)
+    dxi = 1.0 / torch.clamp(dx, min=heps)
+    acc = torch.zeros_like(pq)
+    for k in range(dx.shape[0]):
+        c0, c1, c2 = rc.c0[k][None], rc.c1[k][None], rc.c2[k][None]
+        x = torch.clamp((pq - rc.p[k][None]) * dxi[k][None], 0., 1.)
+        x2 = x * x
+        poly = c0 * x + .5 * c1 * x2 + (1. / 3.) * c2 * x2 * x
+        if rc.c3 is not None:
+            poly = (poly + .25 * rc.c3[k][None] * x2 * x2
+                    + .2 * rc.c4[k][None] * x2 * x2 * x)
+        acc = acc + dx[k][None] * poly
+    return acc
+
+
 def remap_groups(groups, bottom_only_empties: bool = False):
     """Remap several (reconstructions, destination grid) groups in one
     loop over the source layers (remap, mod_hor3map.F90:4723-4790).
 
     groups: list of (rc_list, p_dst); the Recons of one group share the
     source grid rc.p.  Returns a list of lists of destination layer
-    means.  The integral from the column top to each destination edge
+    means.  The quartic terms of a PQM reconstruction are added after the
+    parabola's, in blom_tpu's order; a parabolic reconstruction adds
+    none.  The integral from the column top to each destination edge
     accumulates over source layers k = 0, 1, ... in that order.
     bottom_only_empties: empty destination layers occur only at the
     column bottom (the nudge regrid's minimum-thickness clamp), where they
@@ -394,9 +434,14 @@ def remap_groups(groups, bottom_only_empties: bool = False):
             for t, rc in enumerate(rc_list):
                 c0, c1, c2 = rc.c0[k][None], rc.c1[k][None], rc.c2[k][None]
                 poly = c0 * x + .5 * c1 * x2 + (1. / 3.) * c2 * x2 * x
+                if rc.c3 is not None:
+                    c3, c4 = rc.c3[k][None], rc.c4[k][None]
+                    poly = poly + .25 * c3 * x2 * x2 + .2 * c4 * x2 * x2 * x
                 accs[g][t] = accs[g][t] + dxk[None] * poly
                 if not bottom_only_empties:
                     fval = c0 + c1 * x + c2 * x2
+                    if rc.c3 is not None:
+                        fval = fval + c3 * x2 * x + c4 * x2 * x2
                     points[g][t] = torch.where(inl, fval, points[g][t])
             if not bottom_only_empties:
                 found[g] = found[g] | inl
@@ -426,6 +471,54 @@ def remap_groups(groups, bottom_only_empties: bool = False):
     return out
 
 
+REGRID_MVAL = -1.e33    # missing value of the regrid search
+#                         (the reference's regrid_mval sentinel)
+
+
+def regrid_crossings(rc: Recon, trg):
+    """Pressures where a monotone piecewise-parabolic reconstruction
+    crosses each target value (the reference's root-finding regrid): for
+    every target trg[q] the first non-vanishing layer whose edge values
+    bracket it, the parabola's crossing solved in the stable quadratic
+    form (linear where the curvature vanishes).  Targets outside the
+    reconstruction's range return REGRID_MVAL.  trg: (nq, ...)
+    broadcastable against the rc fields; returns (nq, ...)."""
+    dx = torch.clamp(rc.p[1:] - rc.p[:-1], min=0.)
+    ev0 = rc.eval0()
+    ev1 = rc.eval1()
+    shape = torch.broadcast_shapes(trg.shape,
+                                   (trg.shape[0],) + rc.c0.shape[1:])
+    got = torch.full(shape, REGRID_MVAL, dtype=rc.c0.dtype,
+                     device=rc.c0.device)
+    found = torch.zeros(shape, dtype=torch.bool, device=rc.c0.device)
+    for k in range(dx.shape[0]):
+        p_up, dxk = rc.p[k], dx[k]
+        e0, e1 = ev0[k], ev1[k]
+        inl = ((trg >= torch.minimum(e0, e1)[None])
+               & (trg <= torch.maximum(e0, e1)[None]) & (~found)
+               & (dxk[None] > heps))
+        # a x^2 + b x + c = 0 on [0, 1]: r1 = q/a, r2 = c/q with
+        # q = -(b + sign(b) sqrt(D)) / 2
+        a_, b_, cc = rc.c2[k][None], rc.c1[k][None], rc.c0[k][None] - trg
+        disc = torch.clamp(b_ * b_ - 4. * a_ * cc, min=0.)
+        sq = torch.sqrt(disc)
+        small_a = a_.abs() < 1e-30
+        small_b = b_.abs() < 1e-30
+        q_ = -.5 * (b_ + torch.sign(b_) * sq)
+        r1 = q_ / torch.where(small_a, 1., a_)
+        r2 = cc / torch.where(q_.abs() > 1e-300, q_, 1.)
+        x_lin = -cc / torch.where(small_b, 1., b_)
+        x_sym = torch.sqrt(torch.clamp(
+            -cc / torch.where(small_a, 1., a_), min=0.))   # b == 0
+        x = torch.where((r1 >= 0.) & (r1 <= 1.), r1, r2)
+        x = torch.where(small_b & (~small_a), x_sym, x)
+        x = torch.where(small_a, x_lin, x)
+        x = torch.clamp(x, 0., 1.)
+        got = torch.where(inl, p_up[None] + x * dxk[None], got)
+        found = found | inl
+    return got
+
+
 def remap_means(rc: Recon, p_dst):
     """Destination layer means (I(p_dst[k+1]) - I(p_dst[k])) / dp_dst of
     one reconstruction (the reference's remap, piecewise integration),
@@ -444,12 +537,534 @@ def remap_means(rc: Recon, p_dst):
         c0, c1, c2 = rc.c0[k][None], rc.c1[k][None], rc.c2[k][None]
         x = torch.clamp((pq - p_up) * dxi[k][None], 0., 1.)
         x2 = x * x
-        acc = acc + dxk * (c0 * x + .5 * c1 * x2 + (1. / 3.) * c2 * x2 * x)
+        poly = c0 * x + .5 * c1 * x2 + (1. / 3.) * c2 * x2 * x
+        fval = c0 + c1 * x + c2 * x2
+        if rc.c3 is not None:
+            c3, c4 = rc.c3[k][None], rc.c4[k][None]
+            poly = poly + .25 * c3 * x2 * x2 + .2 * c4 * x2 * x2 * x
+            fval = fval + c3 * x2 * x + c4 * x2 * x2
+        acc = acc + dxk * poly
         # point value at pq where it falls inside this (nonempty) layer
         inl = (pq >= p_up) & (pq <= p_up + dxk) & (dxk > heps) & ~found
-        point = torch.where(inl, c0 + c1 * x + c2 * x2, point)
+        point = torch.where(inl, fval, point)
         found = found | inl
     dpd = p_dst[1:] - p_dst[:-1]
     means = (acc[1:] - acc[:-1]) / torch.clamp(dpd, min=heps)
     point_l = torch.where(found[:-1], point[:-1], means)
     return torch.where(dpd > heps, means, point_l)
+
+
+# ------------------------------------------------------------------ #
+# implicit high-order edge estimation (ih4 / ih6+ih5) and PQM
+# (mod_hor3map.F90:631-1039 coefficient setup,
+#  :1707-1870 tridiagonal reconstructions, :2119-2337 PQM limiting)
+# ------------------------------------------------------------------ #
+
+def _solve(A, b):
+    """A x = b for the batched (..., n, n) A and (..., n, 1) b by LU with
+    partial pivoting, as jnp.linalg.solve: a singular system gives
+    inf/NaN where it must and raises nothing."""
+    return torch.linalg.solve_ex(A, b)[0]
+
+
+def _tridiag_dirichlet(tde1, tde2, rhs, e_first, e_last):
+    """The edge tridiagonal with unit diagonal and Dirichlet boundary
+    edges, by the Thomas recursion (reconstruct_ppm_edge_values,
+    mod_hor3map.F90:1744-1755).  tde1/tde2/rhs: (kk+1, ...) rows, of
+    which the interior edges 1..kk-1 are used; e_first/e_last: the
+    boundary edges.  Returns the edges (kk+1, ...)."""
+    kk1 = rhs.shape[0]
+    e_prev, gam_prev = e_first, torch.zeros_like(e_first)
+    es, gams = [], []
+    for k in range(1, kk1 - 1):
+        bei = 1.0 / (1.0 - tde1[k] * gam_prev)
+        e_prev = (rhs[k] - tde1[k] * e_prev) * bei
+        gam_prev = tde2[k] * bei
+        es.append(e_prev)
+        gams.append(gam_prev)
+    out = [e_last]
+    e_next = e_last
+    for k in range(len(es) - 1, -1, -1):
+        e_next = es[k] - gams[k] * e_next
+        out.append(e_next)
+    out.append(e_first)
+    return torch.stack(out[::-1], 0)
+
+
+def _ih4_coeffs(h):
+    """Row coefficients of the ih4 edge tridiagonal at the interior
+    edges (edge_ih4_coeff, mod_hor3map.F90:631-649).  h: (kk, ...);
+    returns (tde1, tde2, rhs3, rhs4) at the edges (kk+1, ...)."""
+    h1 = torch.cat([h[:1], h], 0)     # cell above the edge
+    h2 = torch.cat([h, h[-1:]], 0)    # cell below the edge
+    q = 1.0 / (h1 + h2)
+    t1 = h2 * h2 * q * q
+    t2 = h1 * h1 * q * q
+    t3 = 2. * t1 * (h2 + 2. * h1) * q
+    t4 = 2. * t2 * (h1 + 2. * h2) * q
+    return t1, t2, t3, t4
+
+
+def _boundary_poly(h, tm, ord_: int, side: str):
+    """Boundary edge value and slope from an ord_-cell polynomial fit
+    (edge_slope_lblu/rblu, mod_hor3map.F90:913-1039): the moment system
+    A c = u of the polynomial in the basis xi^p / p! measured from the
+    boundary edge; c[0] is the edge value, c[1] the slope."""
+    kk = tm.shape[0]
+    n = ord_
+    if side == 'left':
+        hs = [h[i] for i in range(n)]
+        us = [tm[i] for i in range(n)]
+        centers = []
+        c = .5 * hs[0]
+        centers.append(c)
+        for i in range(1, n):
+            c = c + .5 * (hs[i - 1] + hs[i])
+            centers.append(c)
+    else:
+        hs = [h[kk - n + i] for i in range(n)]
+        us = [tm[kk - n + i] for i in range(n)]
+        c = -.5 * hs[-1]
+        centers = [None] * n
+        centers[n - 1] = c
+        for i in range(n - 2, -1, -1):
+            c = c - .5 * (hs[i + 1] + hs[i])
+            centers[i] = c
+
+    rows = []
+    for i in range(n):
+        a2 = centers[i]
+        hh = hs[i]
+        a2sq = a2 * a2
+        hsq = hh * hh
+        row = [torch.ones_like(a2), a2]
+        if n > 2:
+            row.append(.5 * (a2sq + hsq / 12.))
+        if n > 3:
+            row.append((1. / 6.) * a2 * (a2sq + .25 * hsq))
+        if n > 4:
+            row.append((1. / 24.) * (a2sq * (a2sq + .5 * hsq)
+                                     + hsq * hsq / 80.))
+        if n > 5:
+            row.append((1. / 120.) * a2 * (a2sq + .75 * hsq)
+                       * (a2sq + hsq / 12.))
+        rows.append(row)
+
+    A = torch.stack([torch.stack(r, -1) for r in rows], -2)
+    u = torch.stack(us, -1)[..., None]
+    c = _solve(A, u)[..., 0]
+    return c[..., 0], c[..., 1]
+
+
+def edges_ih4(p, tm, lb_ord: int = 4, rb_ord: int = 4):
+    """Implicit 4th-order edges (prepare_ppm + reconstruct_ppm_edge_values,
+    mod_hor3map.F90:1308-1497,1707-1763): a tridiagonal solve along each
+    column.  p: (kk+1, ...), tm: (kk, ...); returns edges (kk+1, ...)."""
+    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
+    t1, t2, t3, t4 = _ih4_coeffs(dx)
+    tm_up = torch.cat([tm[:1], tm], 0)
+    tm_lo = torch.cat([tm, tm[-1:]], 0)
+    rhs = t3 * tm_up + t4 * tm_lo
+    e0, _ = _boundary_poly(dx, tm, lb_ord, 'left')
+    e1, _ = _boundary_poly(dx, tm, rb_ord, 'right')
+    return _tridiag_dirichlet(t1, t2, rhs, e0, e1)
+
+
+def _ipow(x, n: int):
+    """x**n by binary powering, the products jax's integer_pow takes
+    (x**4 = x2 * x2, x**5 = x * x4), not libm's pow."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def _ih6_matrices(dx):
+    """Per-edge 6x6 moment matrices of the symmetric ih6/ih5 stencil
+    (edge_ih6_slope_ih5_coeff_sym, mod_hor3map.F90:782-845), batched
+    over edges and columns.  dx: (kk, ...); valid for the interior edges
+    2..kk-2 (the others fall back to ih4)."""
+    def at(off):
+        return _shift_clamped(dx, off, dx.shape[0] + 1, dx.shape[0] - 1)
+
+    h1, h2, h3, h4 = at(-2), at(-1), at(0), at(1)
+    one = torch.ones_like(h1)
+
+    def stack_col(rows):
+        return torch.stack(rows, -1)
+
+    # column 1: -E(j-1) coefficient moments; column 2: E(j+1) ...
+    c11 = [one, -h2, h2 * h2, -_ipow(h2, 3), _ipow(h2, 4), -_ipow(h2, 5)]
+    c22 = [one, h3, h3 * h3, _ipow(h3, 3), _ipow(h3, 4), _ipow(h3, 5)]
+
+    a23 = .5 * h1 + h2
+    a23sq = a23 * a23
+    h1sq = h1 * h1
+    col3 = [-one, a23, -a23sq - h1sq / 12.,
+            a23 * (a23sq + .25 * h1sq),
+            -a23sq * (a23sq + .5 * h1sq) - h1sq * h1sq / 80.,
+            a23 * (a23sq + .75 * h1sq) * (a23sq + h1sq / 12.)]
+    col4 = [-one, .5 * h2, -h2 * h2 / 3., .25 * _ipow(h2, 3),
+            -_ipow(h2, 4) / 5., _ipow(h2, 5) / 6.]
+    col5 = [-one, -.5 * h3, -h3 * h3 / 3., -.25 * _ipow(h3, 3),
+            -_ipow(h3, 4) / 5., -_ipow(h3, 5) / 6.]
+    a26 = -h3 - .5 * h4
+    a26sq = a26 * a26
+    h4sq = h4 * h4
+    col6 = [-one, a26, -a26sq - h4sq / 12.,
+            a26 * (a26sq + .25 * h4sq),
+            -a26sq * (a26sq + .5 * h4sq) - h4sq * h4sq / 80.,
+            a26 * (a26sq + .75 * h4sq) * (a26sq + h4sq / 12.)]
+
+    return torch.stack([stack_col(c11), stack_col(c22), stack_col(col3),
+                        stack_col(col4), stack_col(col5), stack_col(col6)],
+                       -1)
+
+
+def _moment_col_cell(c, h):
+    """Negated mean moments -E[x^p] (p = 0..5) of the Taylor monomials
+    over a cell of width h centred at the signed position c from the
+    edge: the cell columns of the ih6 moment matrices
+    (edge_ih6_slope_ih5_coeff_*, mod_hor3map.F90:716-911)."""
+    one = torch.ones_like(c)
+    csq = c * c
+    hsq = h * h
+    return [-one,
+            -c,
+            -(csq + hsq / 12.),
+            -(c * (csq + .25 * hsq)),
+            -(csq * (csq + .5 * hsq) + hsq * hsq / 80.),
+            -(c * (csq + .75 * hsq) * (csq + hsq / 12.))]
+
+
+def _ih6_matrices_asym(dx, side: str):
+    """6x6 moment matrices of the asymmetric near-boundary stencils
+    (edge_ih6_slope_ih5_coeff_asymleft/-right,
+    mod_hor3map.F90:716-780,847-911), at every edge (only the
+    near-boundary rows are used)."""
+    def at(off):
+        return _shift_clamped(dx, off, dx.shape[0] + 1, dx.shape[0] - 1)
+
+    one_like = torch.ones_like(at(0))
+
+    def powers(x):
+        return [one_like, x, x * x, _ipow(x, 3), _ipow(x, 4), _ipow(x, 5)]
+
+    if side == 'left':
+        h1, h2, h3, h4 = at(-1), at(0), at(1), at(2)
+        col1 = powers(-h1)                      # E at the edge above
+        col2 = powers(h2)                       # E at the edge below
+        col3 = _moment_col_cell(-.5 * h1, h1)            # cell e-1
+        col4 = _moment_col_cell(.5 * h2, h2)             # cell e
+        col5 = _moment_col_cell(h2 + .5 * h3, h3)        # cell e+1
+        col6 = _moment_col_cell(h2 + h3 + .5 * h4, h4)   # cell e+2
+    else:
+        h1, h2, h3, h4 = at(-3), at(-2), at(-1), at(0)
+        col1 = powers(-h3)
+        col2 = powers(h4)
+        col3 = _moment_col_cell(-(.5 * h1 + h2 + h3), h1)
+        col4 = _moment_col_cell(-(.5 * h2 + h3), h2)
+        col5 = _moment_col_cell(-.5 * h3, h3)
+        col6 = _moment_col_cell(.5 * h4, h4)
+
+    def stack_col(rows):
+        return torch.stack(rows, -1)
+
+    return torch.stack([stack_col(col1), stack_col(col2), stack_col(col3),
+                        stack_col(col4), stack_col(col5), stack_col(col6)],
+                       -1)
+
+
+def _ih6_solve_coeffs(A):
+    """The edge and slope row coefficients of the moment matrices A:
+    A ce = -e0, and B cs = -e0 with the slope system B
+    (edge_ih6_slope_ih5_coeff_common, mod_hor3map.F90:672-712)."""
+    rhs_e = torch.zeros(A.shape[:-1], dtype=A.dtype, device=A.device)
+    rhs_e[..., 0] = -1.
+    ce = _solve(A, rhs_e[..., None])[..., 0]
+    B = torch.zeros_like(A)
+    B[..., 0:5, 2:6] = A[..., 1:6, 2:6]
+    mult = torch.tensor([1., 2., 3., 4., 5.], dtype=A.dtype, device=A.device)
+    B[..., 0:5, 0] = A[..., 0:5, 0] * mult
+    B[..., 0:5, 1] = A[..., 0:5, 1] * mult
+    B[..., 5, 2:6] = 1.
+    cs = _solve(B, rhs_e[..., None])[..., 0]
+    return ce, cs
+
+
+def edges_slopes_ih6(p, tm, lb_ord: int = 6, rb_ord: int = 4):
+    """Implicit 6th/5th-order edges and slopes
+    (reconstruct_pqm_edge_slope_values, mod_hor3map.F90:1765-1870):
+    per-edge 6x6 solves give the tridiagonal rows (ih4/ih3 where they
+    are not diagonally dominant, prepare_pqm:1246-1266), then two Thomas
+    solves along the column.  Returns (edges, slopes), (kk+1, ...) each;
+    the slopes are per unit position."""
+    kk = tm.shape[0]
+    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
+
+    ce, cs = _ih6_solve_coeffs(_ih6_matrices(dx))
+    ce_l, cs_l = _ih6_solve_coeffs(_ih6_matrices_asym(dx, 'left'))
+    ce_r, cs_r = _ih6_solve_coeffs(_ih6_matrices_asym(dx, 'right'))
+
+    def cellv(off):
+        return _shift_clamped(tm, off, kk + 1, kk - 1)
+
+    u_m3 = cellv(-3)
+    u_m2, u_m1, u_0, u_p1 = cellv(-2), cellv(-1), cellv(0), cellv(1)
+    u_p2 = cellv(2)
+
+    def rhs_of(c, us):
+        return (c[..., 2] * us[0] + c[..., 3] * us[1]
+                + c[..., 4] * us[2] + c[..., 5] * us[3])
+
+    kidx = _kidx(kk + 1, tm.ndim, tm.device)
+    at_l = kidx == 1
+    at_r = kidx == kk - 1
+
+    def sel(sym, lft, rgt):
+        return torch.where(at_l, lft, torch.where(at_r, rgt, sym))
+
+    te1 = sel(ce[..., 0], ce_l[..., 0], ce_r[..., 0])
+    te2 = sel(ce[..., 1], ce_l[..., 1], ce_r[..., 1])
+    ts1 = sel(cs[..., 0], cs_l[..., 0], cs_r[..., 0])
+    ts2 = sel(cs[..., 1], cs_l[..., 1], cs_r[..., 1])
+    rhs_e6 = sel(rhs_of(ce, (u_m2, u_m1, u_0, u_p1)),
+                 rhs_of(ce_l, (u_m1, u_0, u_p1, u_p2)),
+                 rhs_of(ce_r, (u_m3, u_m2, u_m1, u_0)))
+    rhs_s6 = sel(rhs_of(cs, (u_m2, u_m1, u_0, u_p1)),
+                 rhs_of(cs_l, (u_m1, u_0, u_p1, u_p2)),
+                 rhs_of(cs_r, (u_m3, u_m2, u_m1, u_0)))
+
+    # ih4/ih3 where the ih6/ih5 rows are not diagonally dominant, and at
+    # the near-boundary edges (prepare_pqm:1246-1296)
+    f1, f2, f3, f4 = _ih4_coeffs(dx)
+    rhs_e4 = f3 * u_m1 + f4 * u_0
+    # ih3 slopes (slope_ih3_coeff, mod_hor3map.F90:651-670)
+    h1 = torch.cat([dx[:1], dx], 0)
+    h2 = torch.cat([dx, dx[-1:]], 0)
+    h11, h22, h12 = h1 * h1, h2 * h2, h1 * h2
+    qs = 1.0 / ((h1 + h2) * (h11 + 3. * h12 + h22))
+    s1 = h2 * (h11 + h2 * (h1 - h2)) * qs
+    s2 = h1 * (h22 + h1 * (h2 - h1)) * qs
+    s3 = -12. * h12 * qs
+    rhs_s3 = s3 * u_m1 - s3 * u_0
+
+    interior6 = (kidx >= 1) & (kidx <= kk - 1) & (kk > 4)
+    bad = ((te1.abs() + te2.abs() > 1.) | (ts1.abs() + ts2.abs() > 1.)
+           | ~interior6)
+    te1 = torch.where(bad, f1, te1)
+    te2 = torch.where(bad, f2, te2)
+    rhs_e6 = torch.where(bad, rhs_e4, rhs_e6)
+    ts1 = torch.where(bad, s1, ts1)
+    ts2 = torch.where(bad, s2, ts2)
+    rhs_s6 = torch.where(bad, rhs_s3, rhs_s6)
+
+    lb = max(2, min(lb_ord, kk))
+    rb = max(2, min(rb_ord, kk))
+    e0, sl0 = _boundary_poly(dx, tm, lb, 'left')
+    e1, sl1 = _boundary_poly(dx, tm, rb, 'right')
+
+    edges = _tridiag_dirichlet(te1, te2, rhs_e6, e0, e1)
+    slopes = _tridiag_dirichlet(ts1, ts2, rhs_s6, sl0, sl1)
+    return edges, slopes
+
+
+def ppm_ih4_reconstruct(p, tm, limiting=NON_OSCILLATORY, pc_upper=False,
+                        pc_lower=False, lb_ord: int = 4,
+                        rb_ord: int = 4) -> Recon:
+    """PPM with implicit 4th-order edges (the reference's default hor3map
+    PPM path, prepare_ppm + reconstruct_ppm_edge_values)."""
+    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
+    return _ppm_from_edges(p, tm, dx, edges_ih4(p, tm, lb_ord, rb_ord),
+                           limiting, pc_upper, pc_lower)
+
+
+def _limit_pqm_monotonic(tm, dx, uel, uer, usl, usr):
+    """Monotonic PQM limiting (limit_pqm_monotonic,
+    mod_hor3map.F90:2119-2337), dense over columns.  usl/usr are
+    xi-slopes (scaled by the cell width)."""
+    tm_m, tm_p = _prev(tm), _next(tm)
+    dx_m, dx_p = _prev(dx), _next(dx)
+
+    hi = 1.0 / dx
+    hci = 2.0 / (dx_m + 2. * dx + dx_p)
+    sl = 2. * (tm - tm_m) * hi
+    sr = 2. * (tm_p - tm) * hi
+    sc0 = (tm_p - tm_m) * hci
+    sc = torch.sign(sc0) * torch.minimum(
+        torch.minimum(sl.abs(), sr.abs()), sc0.abs())
+    has = sl * sr > 0.
+
+    uel2 = torch.where((tm_m - uel) * (tm - uel) > 0.,
+                       tm - torch.sign(sc) * torch.minimum(
+                           .5 * dx * sc.abs(), (uel - tm).abs()), uel)
+    uer2 = torch.where((tm_p - uer) * (tm - uer) > 0.,
+                       tm + torch.sign(sc) * torch.minimum(
+                           .5 * dx * sc.abs(), (uer - tm).abs()), uer)
+    usl2 = torch.where(usl * sc < 0., 0., usl)
+    usr2 = torch.where(usr * sc < 0., 0., usr)
+
+    uel = torch.where(has, uel2, tm)
+    uer = torch.where(has, uer2, tm)
+    usl = torch.where(has, usl2, 0.)
+    usr = torch.where(has, usr2, 0.)
+
+    # inconsistent edges between neighbours (:2162-2168)
+    uer_m = _prev(uer)
+    fixe = (uel - uer_m) * (tm - tm_m) < 0.
+    mid = .5 * (uer_m + uel)
+    uel = torch.where(fixe, mid, uel)
+    # and the neighbour's right edge
+    fixe_p = torch.cat([fixe[1:], torch.zeros_like(fixe[-1:])], 0)
+    uer = torch.where(fixe_p, _next(uel), uer)
+
+    # inconsistent inflexion points (:2172-2264): derivative
+    # coefficients of the quartic
+    a0 = usl
+    a1 = 2. * (30. * tm - 18. * uel - 12. * uer - 4.5 * usl + 1.5 * usr)
+    a2 = 3. * (-60. * tm + 32. * uel + 28. * uer + 6. * usl - 4. * usr)
+    a3 = 4. * (30. * tm - 15. * (uel + uer) - 2.5 * (usl - usr))
+    b0, b1, b2 = a1, 2. * a2, 3. * a3
+
+    ueps = 1e-14
+    q1 = b0 * b2
+    q2 = b1 * b1 - 4. * q1
+
+    def dq(xi):
+        return a0 + xi * (a1 + xi * (a2 + xi * a3))
+
+    s = torch.sqrt(torch.clamp(q2, min=0.))
+    q3 = .5 / torch.where(b2.abs() < ueps, 1., b2)
+    xi_a = -(b1 + s) * q3
+    xi_b = -(b1 - s) * q3
+    xi_lin = -b0 / torch.where(b1.abs() < ueps, 1., b1)
+
+    one_inflex = b0 * (b0 + b1 + b2) < 0.
+    lin_case = b2.abs() < ueps
+    xi1 = torch.where((xi_a > 0.) & (xi_a < 1.), xi_a, xi_b)
+    bad_one = torch.where(lin_case,
+                          (b1.abs() > ueps) & (dq(xi_lin) * sc < 0.),
+                          dq(xi1) * sc < 0.)
+    bad_two = (dq(xi_a) * sc < 0.) | (dq(xi_b) * sc < 0.)
+    incon = (q2 > 0.) & torch.where(one_inflex, bad_one,
+                                    (q1 > ueps) & bad_two)
+
+    # left-leaning fix (:2230-2246)
+    l_usl1 = (10. / 3.) * tm - (8. / 3.) * uel - (2. / 3.) * uer
+    l_bad1 = l_usl1 * sc < 0.
+    l_usr2 = 4. * uel + 6. * uer - 10. * tm
+    l_bad2 = l_usr2 * sc < 0.
+    usl_L = torch.where(l_bad1, 0.,
+                        torch.where(l_bad2, (10. / 3.) * (uer - tm), l_usl1))
+    usr_L = torch.where(l_bad1, 20. * (tm - uel),
+                        torch.where(l_bad2, 0., l_usr2))
+    uel_L = torch.where(l_bad1, uel,
+                        torch.where(l_bad2, 2.5 * tm - 1.5 * uer, uel))
+    uer_L = torch.where(l_bad1, 5. * tm - 4. * uel, uer)
+
+    # right-leaning fix (:2247-2263)
+    r_usr1 = (8. / 3.) * uer + (2. / 3.) * uel - (10. / 3.) * tm
+    r_bad1 = r_usr1 * sc < 0.
+    r_usl2 = 10. * tm - 4. * uer - 6. * uel
+    r_bad2 = r_usl2 * sc < 0.
+    usr_R = torch.where(r_bad1, 0.,
+                        torch.where(r_bad2, (10. / 3.) * (tm - uel), r_usr1))
+    usl_R = torch.where(r_bad1, 20. * (uer - tm),
+                        torch.where(r_bad2, 0., r_usl2))
+    uer_R = torch.where(r_bad1, uer,
+                        torch.where(r_bad2, 2.5 * tm - 1.5 * uel, uer))
+    uel_R = torch.where(r_bad1, 5. * tm - 4. * uer, uel)
+
+    left = sl.abs() < sr.abs()
+    uel = torch.where(incon, torch.where(left, uel_L, uel_R), uel)
+    uer = torch.where(incon, torch.where(left, uer_L, uer_R), uer)
+    usl = torch.where(incon, torch.where(left, usl_L, usl_R), usl)
+    usr = torch.where(incon, torch.where(left, usr_L, usr_R), usr)
+
+    # boundary cells (:2266-2336): not extrema, but monotonic within
+    kk = tm.shape[0]
+    u2 = tm[1] if kk > 1 else tm[0]
+    u3 = tm[2] if kk > 2 else tm[-1]
+    pcm_top = (u2 - uer[0]) * (tm[0] - uer[0]) > 0.
+    s_top = (2. * (u3 - u2) / (dx[1] + dx[2]) if kk > 2
+             else torch.zeros_like(tm[0]))
+    cand = tm[0] + (1. / 3.) * s_top * dx[0]
+    uer0 = torch.where(s_top > 0.,
+                       torch.maximum(tm[0], torch.minimum(uel[1], cand)),
+                       torch.minimum(tm[0], torch.maximum(uel[1], cand)))
+    uer0 = torch.where(pcm_top, tm[0], uer0)
+    uel0 = torch.where(pcm_top, tm[0], .5 * (3. * tm[0] - uer0))
+    usl0 = torch.where(pcm_top, 0., 6. * tm[0] - 4. * uel0 - 2. * uer0)
+    usr0 = torch.where(pcm_top, 0., 2. * uel0 + 4. * uer0 - 6. * tm[0])
+
+    um1 = tm[-2] if kk > 1 else tm[0]
+    um2 = tm[-3] if kk > 2 else tm[0]
+    pcm_bot = (tm[-1] - uel[-1]) * (um1 - uel[-1]) > 0.
+    s_bot = (2. * (um1 - um2) / (dx[-3] + dx[-2]) if kk > 2
+             else torch.zeros_like(tm[-1]))
+    candb = tm[-1] - (1. / 3.) * s_bot * dx[-1]
+    uelN = torch.where(s_bot > 0.,
+                       torch.minimum(tm[-1], torch.maximum(uer[-2], candb)),
+                       torch.maximum(tm[-1], torch.minimum(uer[-2], candb)))
+    uelN = torch.where(pcm_bot, tm[-1], uelN)
+    uerN = torch.where(pcm_bot, tm[-1], .5 * (3. * tm[-1] - uelN))
+    uslN = torch.where(pcm_bot, 0., 6. * tm[-1] - 4. * uelN - 2. * uerN)
+    usrN = torch.where(pcm_bot, 0., 2. * uelN + 4. * uerN - 6. * tm[-1])
+
+    out = []
+    for a, top, bot in ((uel, uel0, uelN), (uer, uer0, uerN),
+                        (usl, usl0, uslN), (usr, usr0, usrN)):
+        a = a.clone()
+        a[0] = top
+        a[-1] = bot
+        out.append(a)
+    return tuple(out)
+
+
+def pqm_reconstruct(p, tm, limiting=MONOTONIC, pc_upper=False,
+                    pc_lower=False, lb_ord: int = 6,
+                    rb_ord: int = 4) -> Recon:
+    """Piecewise Quartic Method (prepare_pqm +
+    reconstruct_pqm_edge_slope_values + limit_pqm_*,
+    mod_hor3map.F90:1041-1306,1765-1870,2119-2624): per cell the quartic
+    in xi with f(0) = uel, f(1) = uer, f'(0) = usl, f'(1) = usr and the
+    mean tm."""
+    dx = torch.clamp(p[1:] - p[:-1], min=0.) + heps
+    edges, slopes = edges_slopes_ih6(p, tm, lb_ord, rb_ord)
+    uel, uer = edges[:-1], edges[1:]
+    usl = slopes[:-1] * dx     # xi-slopes
+    usr = slopes[1:] * dx
+
+    if limiting == MONOTONIC:
+        uel, uer, usl, usr = _limit_pqm_monotonic(tm, dx, uel, uer, usl,
+                                                  usr)
+    elif limiting in (NON_OSCILLATORY, NON_OSCILLATORY_POSDEF):
+        # only where the curvature changes sign
+        d2 = uel - 2. * tm + uer
+        need = (_prev(d2) * d2 <= 0.) | (d2 * _next(d2) <= 0.)
+        uel_l, uer_l, usl_l, usr_l = _limit_pqm_monotonic(
+            tm, dx, uel, uer, usl, usr)
+        uel = torch.where(need, uel_l, uel)
+        uer = torch.where(need, uer_l, uer)
+        usl = torch.where(need, usl_l, usl)
+        usr = torch.where(need, usr_l, usr)
+        if limiting == NON_OSCILLATORY_POSDEF:
+            uel = torch.clamp(uel, min=0.)
+            uer = torch.clamp(uer, min=0.)
+
+    pc_mask = _pc_mask(tm, dx, pc_upper, pc_lower)
+    uel = torch.where(pc_mask, tm, uel)
+    uer = torch.where(pc_mask, tm, uer)
+    usl = torch.where(pc_mask, 0., usl)
+    usr = torch.where(pc_mask, 0., usr)
+
+    c0 = uel
+    c1 = usl
+    c2 = 30. * tm - 18. * uel - 12. * uer - 4.5 * usl + 1.5 * usr
+    c3 = -60. * tm + 32. * uel + 28. * uer + 6. * usl - 4. * usr
+    c4 = 30. * tm - 15. * (uel + uer) - 2.5 * (usl - usr)
+    return Recon(p=p, c0=c0, c1=c1, c2=c2, c3=c3, c4=c4)

@@ -142,12 +142,24 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    and timed as tracers_kernels; tke_parity: one f64 step of each parity
    at 24x8x10, card against CPU, the slots one by one (deck D, the main
    path's variants with the geopotential PGF, runs among the decks);
+   highorder: fuk95 with bench.py's physics at 384x360x53 in f32 under
+   each ALE method that runs off kernels K1 and K2 (HIGHORDER_VARIANTS:
+   PPM with implicit ih4 edges, PQM with ih6/ih5 edges and slopes, the
+   direct regrid), 4 timed steps from the initial state after 2: the
+   slice's gates (salinity within SALN_DEV_DIRECT under the direct
+   regrid), launches per step (CPPM 2, momentum 1, K1 0, K2 0), s/step,
+   the device time of each phase with the ALE phase apart, and the peak
+   device memory allocated; highorder_drift: the direct regrid in f32 at
+   SALN_REF_SIZE for those 4 steps, its salinity beside blom_tpu's own
+   (SALN_REF) within SALN_DEV_DIRECT; highorder_parity: one f64 step of
+   each time-level parity under each method at 24x8x8, card against
+   CPU;
 11. the kernels summary line (with the tracer counts each kernel met and
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
    carbon-isotope path, the decks, the tripolar grid, the vertical
-   physics).
+   physics, the high-order ALE methods).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -174,6 +186,19 @@ STEP_REL = 1e-5         # whole-step parity tolerance (see tests)
 # f32 gives the same 2.4e-4 after one step at 96x32x53)
 SALN_DEV = 1e-4
 SALN_DEV_ALE = 5e-3
+# The direct regrid's salinity gate.  That regrid keeps interior layers
+# to 0.1 m and leaves the deepest wet layer of a column any thickness
+# below it, so the remap's f32 rounding (above) moves salinity further
+# than under the nudge regrid, and further each step as those layers
+# thin.  SALN_REF is blom_tpu's own f32 direct run after the 4 steps
+# from the initial state that `highorder` gates, at SALN_REF_SIZE
+# (ale_drift_reference.py: CPU, 64-bit types off; the port beside it
+# reads 1.22x that, blom_tpu's run is NaN by step 6, ROADMAP.md §3).
+# The gate is twice SALN_REF; `highorder` also runs the port's direct
+# regrid on the card at SALN_REF_SIZE for those steps against it.
+SALN_REF_SIZE = dict(itdm=96, jtdm=64, kdm=53)
+SALN_REF = 0.005245208740234375
+SALN_DEV_DIRECT = 2. * SALN_REF
 NTR_CHECK = (0, 5, 37)  # tracer counts of the ALE remap check
 NTR_MANY = 37           # of those, checked in the main path's pair only
 KK_DEEP, JJ_DEEP, II_DEEP = 80, 24, 41   # the ALE kernels' deep check
@@ -977,14 +1002,17 @@ def zero_counters():
 def expected_launches(par, arctic=False):
     """{kernel: {instantiation: launches per step}} of a step with `par`:
     two CPPM sweeps, one momentum launch and on a tripolar grid one of
-    its fold pre-pass, one launch of each ALE kernel when ALE is on;
-    every other instantiation 0."""
+    its fold pre-pass, one launch of each ALE kernel when ALE is on with
+    the method the kernels compute (explicit-edge PPM and the nudge
+    regrid; the other methods run plain); every other instantiation
+    0."""
+    from blom_tpu_torch.dynamics.ale import ale_kernels_ok
     out = {'cppm_sweep': {f'{par.cppm_compatibility}/{par.cppm_limiting}':
                           2},
            'momtum_uv': {par.momtum.mommth: 1},
            'momtum_fold': {par.momtum.mommth: 1} if arctic else {},
            'ale_regrid': {}, 'ale_remap': {}}
-    if par.ale is not None:
+    if par.ale is not None and ale_kernels_ok(par.ale):
         out['ale_regrid'] = {par.ale.tracer_limiting: 1}
         out['ale_remap'] = {f'{par.ale.tracer_limiting}/'
                             f'{par.ale.velocity_limiting}': 1}
@@ -1040,14 +1068,17 @@ def run_slice(dev, paths, syncs):
 
 def slice_gates(model, s, nsteps, mass0):
     """Finite fields, mass drift <= 1e-5, salinity within SALN_DEV of 35
-    (SALN_DEV_ALE with the ALE remap on)."""
+    (SALN_DEV_ALE with the ALE remap on, SALN_DEV_DIRECT with the direct
+    regrid)."""
     import torch
     new = 1 if nsteps % 2 == 0 else 0      # slot of the newest level
     finite = all(bool(torch.isfinite(getattr(s, f)).all())
                  for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
     drift = (mass(model, s.dp[new]) - mass0) / mass0
     saln_dev = float(((s.saln[new] - 35.) * model.grid.ip).abs().max())
-    saln_tol = SALN_DEV if model.par.ale is None else SALN_DEV_ALE
+    ale = model.par.ale
+    saln_tol = (SALN_DEV if ale is None else SALN_DEV_DIRECT
+                if ale.regrid_method == 'direct' else SALN_DEV_ALE)
     ok = finite and abs(drift) <= 1e-5 and saln_dev <= saln_tol
     return ok, dict(finite=finite, rel_mass_drift=drift,
                     max_saln_dev=saln_dev, max_abs_v=float(s.v.abs().max()))
@@ -1091,9 +1122,10 @@ def profile_phases(model, nsteps=4, phase='phase_profile'):
     for (name, e0), (_, e1) in zip(marks, marks[1:]):
         if name != 'end':
             ms[name] = ms.get(name, 0.) + e0.elapsed_time(e1) / nsteps
-    emit(phase, steps=nsteps,
-         step_ms=marks[0][1].elapsed_time(marks[-1][1]) / nsteps,
+    step_ms = marks[0][1].elapsed_time(marks[-1][1]) / nsteps
+    emit(phase, steps=nsteps, step_ms=step_ms,
          phase_ms=dict(sorted(ms.items(), key=lambda kv: -kv[1])))
+    return step_ms, ms
 
 
 PARITY_FIELDS = ('u', 'v', 'dp', 'temp', 'saln', 'pb', 'ubflx', 'vbflx',
@@ -2255,6 +2287,117 @@ def run_tke_parity(dev):
     return ok
 
 
+# ------------------------------------------------------------- highorder
+
+NSTEPS_HIGHORDER = (2, 4)           # warm-up, timed steps
+PARITY_HIGHORDER = dict(itdm=24, jtdm=8, kdm=8)
+# the ALE methods that run plain, off kernels K1 and K2
+HIGHORDER_VARIANTS = {
+    'ppm_ih4': dict(reconstruction_method='ppm_ih4'),
+    'pqm': dict(reconstruction_method='pqm', upper_bndr_ord=6,
+                lower_bndr_ord=4),
+    'direct': dict(regrid_method='direct'),
+}
+
+
+def build_highorder(dev, dtype, variant, **size):
+    """fuk95 with bench.py's physics and the ALE method of `variant`."""
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    model = standalone.build_fuk95(dtype=dtype, device=dev, **size)
+    model.par = model.par._replace(
+        difest=DifestParams(**BENCH_DIFEST),
+        ale=model.par.ale._replace(**HIGHORDER_VARIANTS[variant]))
+    return model
+
+
+def run_highorder(dev, paths):
+    """Each ALE method of HIGHORDER_VARIANTS at the main path's width in
+    f32: warm-up and timed steps, the slice's gates, launches per step
+    (CPPM 2, momentum 1, K1 and K2 0), s/step, the device time of each
+    phase (the 'ale_regrid_remap' phase reported apart) and the peak
+    device memory allocated from the build on (base_mem_bytes: what was
+    allocated before it).  The timed steps start again from the initial
+    state.  Then the direct regrid at SALN_REF_SIZE, as blom_tpu's
+    reading SALN_REF was taken (run_highorder_drift)."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    warm, nsteps = NSTEPS_HIGHORDER
+    ok_all = True
+    for name in HIGHORDER_VARIANTS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        model = build_highorder(dev, torch.float32, name, itdm=II, jtdm=JJ,
+                                kdm=KK)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mass0 = mass(model, model.state.dp[1])
+        standalone.run(model, warm)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        s, _ = standalone.run(model, nsteps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters()
+        counts.pop('host_syncs')
+        paths[f'fuk95_{name}'] = counts
+        ok, rec = slice_gates(model, s, nsteps, mass0)
+        ok &= launches_ok(counts, model.par, nsteps)
+        step_ms, phase_ms = profile_phases(model, 2,
+                                           f'highorder_{name}_phase_profile')
+        emit('highorder', variant=name, ale=model.par.ale._asdict(),
+             shape=[KK, JJ, II], dtype='float32', build_seconds=build_s,
+             warmup_steps=warm, steps=nsteps, ok=ok, **rec,
+             saln_tol=(SALN_DEV_DIRECT if name == 'direct'
+                       else SALN_DEV_ALE),
+             launches=counts, seconds_per_step=wall / nsteps,
+             gridpoints_per_s=II * JJ * KK * nsteps / wall,
+             step_ms=step_ms, ale_ms=phase_ms.get('ale_regrid_remap'),
+             peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+             base_mem_bytes=base_mem)
+        ok_all &= ok
+        del model, s
+    return ok_all & run_highorder_drift(dev)
+
+
+def run_highorder_drift(dev):
+    """The direct regrid in f32 at SALN_REF_SIZE, NSTEPS_HIGHORDER's
+    timed steps from the initial state: the slice's gates, its salinity
+    deviation beside blom_tpu's own there (SALN_REF)."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    nsteps = NSTEPS_HIGHORDER[1]
+    model = build_highorder(dev, torch.float32, 'direct', **SALN_REF_SIZE)
+    mass0 = mass(model, model.state.dp[1])
+    s, _ = standalone.run(model, nsteps)
+    ok, rec = slice_gates(model, s, nsteps, mass0)
+    emit('highorder_drift', variant='direct', size=SALN_REF_SIZE,
+         dtype='float32', steps=nsteps, ok=ok, **rec,
+         blom_tpu_saln_dev=SALN_REF,
+         ratio=rec['max_saln_dev'] / SALN_REF, saln_tol=SALN_DEV_DIRECT)
+    return ok
+
+
+def run_highorder_parity(dev):
+    """One f64 step of each time-level parity under each ALE method of
+    HIGHORDER_VARIANTS at PARITY_HIGHORDER, card against CPU, within
+    STEP_REL."""
+    import torch
+    ok_all = True
+    for name in HIGHORDER_VARIANTS:
+        models = {d: build_highorder(d, torch.float64, name,
+                                     **PARITY_HIGHORDER)
+                  for d in (dev, 'cpu')}
+        one_step = one_step_parity(models, dev)
+        ok = all(r <= STEP_REL for _, r in one_step.values())
+        emit('highorder_parity', variant=name, ok=ok, tolerance=STEP_REL,
+             size=PARITY_HIGHORDER, one_step=one_step)
+        ok_all &= ok
+    return ok_all
+
+
 # ------------------------------------------------------------------ decks
 
 def deck_path(name, dtype, expcnf):
@@ -2518,6 +2661,8 @@ def main():
     ok &= run_kpp_parity(dev)
     ok &= run_tke(dev, paths, syncs, tracer_results)
     ok &= run_tke_parity(dev)
+    ok &= run_highorder(dev, paths)
+    ok &= run_highorder_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)

@@ -273,13 +273,29 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize('change', [dict(regrid_method='direct'),
                                     dict(reconstruction_method='pqm')])
-def test_unported_ale_options_raise(change):
-    jg, tg, js = _state(0)
+def test_ale_options_match_blom_tpu(monkeypatch, change):
+    """The ALE options the port once refused here, one ale_regrid_remap
+    each from the same state, within 1e-12.  The state has empty bottom
+    layers, where PQM's boundary fits are nearly singular and the two
+    packages' LAPACK solves part ways (blom_tpu's gives NaN in u at 12
+    points, ROADMAP.md §3), so PQM runs with one common solver for both
+    (test_torch_hor3map_highorder.py)."""
+    from tests.test_torch_hor3map_highorder import use_common_solver
+    jg, tg, js = _state(2)
+    ref_ale = jam.make_ale_params(KK)._replace(**change)
+    if 'reconstruction_method' in change:
+        use_common_solver(monkeypatch)
+    ref = jam.ale_regrid_remap(jg, jeos.init_eos(), ref_ale, js, 0, 1,
+                               360.)
     ts = convert.state_from_numpy({f.name: np.asarray(getattr(js, f.name))
                                    for f in dataclasses.fields(js)})
-    ale = tam.make_ale_params(KK)._replace(**change)
-    with pytest.raises(NotImplementedError):
-        tam.ale_regrid_remap(tg, teos.init_eos(), ale, ts, 0, 1, 360.)
+    out = tam.ale_regrid_remap(tg, teos.init_eos(),
+                               tam.make_ale_params(KK)._replace(**change),
+                               ts, 0, 1, 360.)
+    for f in dataclasses.fields(ref):
+        np.testing.assert_allclose(getattr(out, f.name).numpy(),
+                                   np.asarray(getattr(ref, f.name)),
+                                   err_msg=f.name, **TOL)
 
 
 @pytest.mark.parametrize('change', [dict(tracer_limiting='none'),

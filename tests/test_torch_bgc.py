@@ -38,6 +38,7 @@ from blom_tpu_torch.bgc import step as tbstep
 from blom_tpu_torch.bgc.params import BgcParams, BgcTracers as T
 from blom_tpu_torch.drivers import standalone as tst
 from tests.test_bgc import _column
+from tests.torch_shared import shared_build
 
 TOL = 1e-12
 DTB = 180. / 86400.
@@ -263,9 +264,10 @@ def _np_fields(obj):
 
 
 @pytest.fixture(scope='module')
-def bgc_models():
+def bgc_models(tmp_path_factory):
     """Both packages' fuk95 with the BGC tracers."""
-    return (jst.build_fuk95(use_bgc=True, **SIZE),
+    return (shared_build(tmp_path_factory, jst.build_fuk95, use_bgc=True,
+                         **SIZE),
             tst.build_fuk95(use_bgc=True, device='cpu', **SIZE))
 
 

@@ -245,6 +245,54 @@ def test_isopyc_deck_builds_as_blom_tpu(tmp_path):
     tstep.check_supported(tm.grid, tm.par)
 
 
+@pytest.mark.parametrize('method', ['ppm_ih4', 'pqm', 'plm'])
+def test_reconstruction_method_deck_matches_blom_tpu(tmp_path, monkeypatch,
+                                                     method):
+    """A fuk95 deck with &ALE_REGRID_REMAP RECONSTRUCTION_METHOD builds
+    in both packages with the same ALE parameters, which the port's step
+    takes, and one step from the same state agrees to 1e-10 with
+    blom_tpu's step run op by op.  'plm' is not a method of either
+    package: blom_tpu's dispatch runs explicit-edge PPM for it, and so
+    does the port's, off the ALE kernels as in blom_tpu.  The implicit
+    edges solve nearly singular systems next to the empty bottom layers,
+    where the two packages' LAPACK round apart (1e-10 of T after one
+    step), so both solve with one common solver here
+    (test_torch_hor3map_highorder.py)."""
+    from blom_tpu.configs import fuk95 as jfuk
+    from tests.test_torch_hor3map_highorder import use_common_solver
+    from blom_tpu_torch.configs import fuk95 as tfuk
+    for mod in (jfuk, tfuk):
+        for name, v in dict(ITDM=24, JTDM=8, KDM=8).items():
+            monkeypatch.setattr(mod, name, v)
+    path = tmp_path / f'limits_fuk95_{method}'
+    path.write_text(deck_text('C', 'float64', 'fuk95').replace(
+        '&ALE_REGRID_REMAP\n',
+        f"&ALE_REGRID_REMAP\n  RECONSTRUCTION_METHOD = '{method}',\n"))
+    jm, tm = jcase.build_case(str(path))[0], tcase.build_case(
+        str(path), device='cpu')[0]
+    assert tm.par.ale._asdict() == jm.par.ale._asdict()
+    assert tm.par.ale.reconstruction_method == method
+    assert not tal.ale_kernels_ok(tm.par.ale)
+    tstep.check_supported(tm.grid, tm.par)
+    use_common_solver(monkeypatch)
+    d1 = jm.clock.delt1
+    with jax.disable_jit():
+        js, _ = jstep.blom_step(jm.grid, jm.e, jm.par, jm.coeffs_i,
+                                jm.coeffs_j, jm.state, jm.forcing, jm.dfl,
+                                0, 1, d1, jm.swabs)
+    s = convert.state_from_numpy(_np_fields(jm.state))
+    ts, _ = tstep.blom_step(tm.grid, tm.e, tm.par, tm.coeffs_i, tm.coeffs_j,
+                            s, tm.forcing, tm.dfl, 0, 1, d1, tm.swabs)
+    bad = {}
+    for f, a in _np_fields(js).items():
+        if a.size:
+            err = float(np.abs(a - getattr(ts, f).numpy()).max()
+                        / max(np.abs(a).max(), 1e-300))
+            if err > 1e-10:
+                bad[f] = err
+    assert not bad, bad
+
+
 def test_diaphy_raises(tmp_path):
     path = _deck(tmp_path, 'A')
     with open(path, 'a') as f:

@@ -84,6 +84,7 @@ from blom_tpu_torch.ops import reduce as tre
 from blom_tpu_torch.phys import vmix as tvm
 from tests.test_convec_oracle import _random_state as convec_state
 from tests.test_diapfl_oracle import _random_columns as diapfl_columns
+from tests.torch_shared import shared_build
 
 SIZE = dict(itdm=24, jtdm=8, kdm=10)
 TOL = 1e-12
@@ -130,9 +131,10 @@ def _port_state(s):
 
 
 @pytest.fixture(scope='module')
-def models():
+def models(tmp_path_factory):
     """Both packages' isopycnic build_fuk95."""
-    return (jst.build_fuk95(vcoord=ISOPYC, **SIZE),
+    return (shared_build(tmp_path_factory, jst.build_fuk95, vcoord=ISOPYC,
+                         **SIZE),
             tst.build_fuk95(vcoord=ISOPYC, device='cpu', **SIZE))
 
 
@@ -325,10 +327,11 @@ def _with_tracers(s, ntr, seed=7):
 
 
 @pytest.mark.parametrize('ntr', [0, 2])
-def test_convec_matches_blom_tpu(ntr):
+def test_convec_matches_blom_tpu(tmp_path_factory, ntr):
     """test_convec_oracle.py's random state: unstable columns, kfplo
     above and below the collapsed kfpl, random velocities."""
-    jm = jst.build_fuk95(itdm=18, jtdm=8, kdm=12)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, itdm=18, jtdm=8,
+                      kdm=12)
     tm = tst.build_fuk95(itdm=18, jtdm=8, kdm=12, device='cpu')
     s, n = convec_state(jm)
     rng = np.random.default_rng(8)
@@ -341,9 +344,10 @@ def test_convec_matches_blom_tpu(ntr):
 
 
 @pytest.mark.parametrize('ntr', [0, 2])
-def test_diapfl_matches_blom_tpu(ntr):
+def test_diapfl_matches_blom_tpu(tmp_path_factory, ntr):
     """test_diapfl_oracle.py's random columns with random velocities."""
-    jm = jst.build_fuk95(itdm=18, jtdm=8, kdm=12)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, itdm=18, jtdm=8,
+                      kdm=12)
     tm = tst.build_fuk95(itdm=18, jtdm=8, kdm=12, device='cpu')
     s, nu, n = diapfl_columns(jm)
     g = jm.grid

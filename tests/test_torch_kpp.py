@@ -57,6 +57,7 @@ from tests.test_torch_isopyc import MXLAYR_TOL
 from tests.test_torch_slice import FULL_PHASES
 from tests.test_torch_tracers import (EXTRA, _np_fields, _port,
                                       _port_state, _Ref, _rel_errors)
+from tests.torch_shared import shared_build
 
 TOL = 1e-12
 SIZE = dict(itdm=24, jtdm=12, kdm=10)
@@ -132,8 +133,9 @@ def test_turb_velocity_scales_match_blom_tpu(regime):
 # ------------------------------------------------------------------ KPP
 
 @pytest.fixture(scope='module')
-def kpp_models():
-    return jst.build_fuk95(**SIZE), tst.build_fuk95(device='cpu', **SIZE)
+def kpp_models(tmp_path_factory):
+    return (shared_build(tmp_path_factory, jst.build_fuk95, **SIZE),
+            tst.build_fuk95(device='cpu', **SIZE))
 
 
 def _kpp_state(jm, seed=3):
@@ -267,12 +269,13 @@ def test_tidal_diffusivity_matches_blom_tpu(with_plat):
 
 
 @pytest.mark.parametrize('kind', ['float', 'field'])
-def test_difest_vertical_tidal_matches_blom_tpu(kind):
+def test_difest_vertical_tidal_matches_blom_tpu(tmp_path_factory, kind):
     """tests/test_kpp.py:135-171's configuration (fuk95 24x8x10, n 1):
     the tidal increment of the tracer diffusivity is non-negative and
     larger at the deepest interior interface than at the shallowest, on
     the mean over water."""
-    jm = jst.build_fuk95(itdm=24, jtdm=8, kdm=10)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, itdm=24, jtdm=8,
+                      kdm=10)
     tm = tst.build_fuk95(itdm=24, jtdm=8, kdm=10, device='cpu')
     if kind == 'float':
         jtw, ttw = 5e-2, 5e-2
@@ -475,12 +478,12 @@ def with_vertical_physics(jm, tm, vmix, forcing, **par):
     return jm, tm
 
 
-def _step_models(coord):
+def _step_models(coord, tmp_path_factory):
     if coord == 'isopyc':
         size = dict(vcoord='isopyc_bulkml', **ISOPYC_SIZE)
     else:
         size = ALE_SIZE
-    jm = jst.build_fuk95(**size)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, **size)
     tm = tst.build_fuk95(device='cpu', **size)
     par = {}
     if coord == 'ale':
@@ -495,10 +498,10 @@ def _step_models(coord):
 
 
 @pytest.mark.parametrize('coord', ['ale', 'isopyc'])
-def test_kpp_tidal_step_matches_blom_tpu(coord):
+def test_kpp_tidal_step_matches_blom_tpu(tmp_path_factory, coord):
     """Every phase of two steps (both parities) with KPP, the tidal field
     and (ALE) the geopotential PGF, from blom_tpu's state before it."""
-    jm, tm = _step_models(coord)
+    jm, tm = _step_models(coord, tmp_path_factory)
     tstep.check_supported(tm.grid, tm.par)
     phases = (FULL_PHASES if coord == 'ale' else ISOPYC_PHASES)
     rec, _ = VRef(jm, coord).run(2, phases)
@@ -515,11 +518,11 @@ PROGNOSTIC = ('u', 'v', 'dp', 'temp', 'saln', 'pb')
 
 
 @pytest.fixture(scope='module')
-def tripolar_advanced():
+def tripolar_advanced(tmp_path_factory):
     """Both tripolar models with KPP, the tidal field and the forcing of
     kpp_forcing, from the state and diffusion fields the port reaches in
     four steps (the fold rows carry flow)."""
-    jm = jst.build_tripolar(**TRIPOLAR_SIZE)
+    jm = shared_build(tmp_path_factory, jst.build_tripolar, **TRIPOLAR_SIZE)
     tm = tst.build_tripolar(device='cpu', **TRIPOLAR_SIZE)
     jm, tm = with_vertical_physics(
         jm, tm, dict(use_kpp=True, twedon=twedon_field(jm.grid.shape)),

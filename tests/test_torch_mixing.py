@@ -36,6 +36,7 @@ from blom_tpu_torch.dynamics import diffus as tdi
 from blom_tpu_torch.dynamics import eddtra as ted
 from blom_tpu_torch.phys import swabs as tsw
 from blom_tpu_torch.phys import vmix as tvm
+from tests.torch_shared import shared_build
 
 SIZE = dict(itdm=24, jtdm=8, kdm=8)
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -57,10 +58,10 @@ def _same(port, ref, names=None):
 
 
 @pytest.fixture(scope='module')
-def case():
+def case(tmp_path_factory):
     """blom_tpu's and the port's containers for one perturbed state."""
     torch.set_num_threads(1)
-    jm = jst.build_fuk95(**SIZE)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, **SIZE)
     g = jm.grid
     rng = np.random.default_rng(7)
     s = jm.state

@@ -28,6 +28,7 @@ from blom_tpu_torch import convert
 from blom_tpu_torch.core.grid import TENSOR_FIELDS
 from blom_tpu_torch.dynamics import barotp as tb
 from blom_tpu_torch.dynamics import momtum as tmo
+from tests.torch_shared import shared_build
 
 SCHEMES = ('enscon', 'enecon', 'enedis')
 
@@ -150,11 +151,12 @@ def test_coriolis_terms_match_blom_tpu(periodic_i, mommth):
 
 
 @pytest.fixture(scope='module')
-def fuk95_models():
+def fuk95_models(tmp_path_factory):
     torch.set_num_threads(1)
     from blom_tpu_torch.drivers import standalone as tst
     size = dict(itdm=24, jtdm=8, kdm=8)
-    return jst.build_fuk95(**size), tst.build_fuk95(device='cpu', **size)
+    return (shared_build(tmp_path_factory, jst.build_fuk95, **size),
+            tst.build_fuk95(device='cpu', **size))
 
 
 @pytest.mark.parametrize('mommth', SCHEMES)

@@ -33,6 +33,7 @@ from blom_tpu_torch.dynamics import pgforc as tg
 from chip_smoke import DECK_PGFMTH, deck_text
 from tests.oracles import pgforc_oracle as orc
 from tests.test_torch_tracers import _np_fields, _rel_errors
+from tests.torch_shared import shared_build
 
 TOL = 1e-12
 SIZE = dict(itdm=32, jtdm=12, kdm=8)
@@ -69,12 +70,12 @@ def test_side_eval_matches_blom_tpu():
 
 
 @pytest.fixture(scope='module')
-def advanced():
+def advanced(tmp_path_factory):
     """Both fuk95 models at SIZE with the state the port reaches in four
     steps."""
     tm = tst.build_fuk95(device='cpu', **SIZE)
     s, _ = tst.run(tm, 4)
-    jm = jst.build_fuk95(**SIZE)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, **SIZE)
     js = dataclasses.replace(jm.state, **{
         k: jnp.asarray(v) for k, v in _np_fields(s).items()})
     return jm, tm, js, s

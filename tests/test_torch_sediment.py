@@ -30,6 +30,7 @@ from blom_tpu_torch.bgc import step as tbstep
 from blom_tpu_torch.bgc.params import BgcParams, BgcTracers as T
 from blom_tpu_torch.drivers import standalone as tst
 from tests.test_torch_bgc import _close, _close_all, _t
+from tests.torch_shared import shared_build
 
 DT = 1800.
 
@@ -236,13 +237,14 @@ def test_sedshi_matches_blom_tpu(case):
 SIZE = dict(itdm=16, jtdm=8, kdm=8)     # as tests/test_sediment.py:164
 
 
-def test_hamocc_step_with_sediment_matches_blom_tpu():
+def test_hamocc_step_with_sediment_matches_blom_tpu(tmp_path_factory):
     """Two calls from NOINYOC's initial state with the detritus seeded
     at 1e-6, at level 0 then 1: every tracer, every sediment field and
     every diagnostic; then the port's own gate of
     tests/test_sediment.py: the sediment gains POC in every wet
     column."""
-    jm = jst.build_fuk95(use_bgc=True, **SIZE)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, use_bgc=True,
+                      **SIZE)
     tm = tst.build_fuk95(use_bgc=True, device='cpu', **SIZE)
     b = jm.par.itrbgc
     js = dataclasses.replace(

@@ -43,6 +43,7 @@ bench.py's ``DifestParams(egc=.85, egmndf=100.)``:
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -79,6 +80,7 @@ from blom_tpu_torch.dynamics import pgforc as tg
 from blom_tpu_torch.dynamics import step as tstep
 from blom_tpu_torch.dynamics import tmsmt as tt
 from blom_tpu_torch.phys import vmix as tvm
+from tests.torch_shared import shared, shared_build
 
 SIZE = dict(itdm=24, jtdm=8, kdm=8)
 PROGNOSTIC = ('u', 'v', 'dp', 'temp', 'saln', 'pb')
@@ -104,10 +106,11 @@ def _rel_errors(ref_state, state):
 
 
 @pytest.fixture(scope='module')
-def default_models():
+def default_models(tmp_path_factory):
     """Both packages' build_fuk95 with their defaults."""
     torch.set_num_threads(1)
-    return jst.build_fuk95(**SIZE), tst.build_fuk95(device='cpu', **SIZE)
+    return (shared_build(tmp_path_factory, jst.build_fuk95, **SIZE),
+            tst.build_fuk95(device='cpu', **SIZE))
 
 
 @pytest.fixture(scope='module')
@@ -128,10 +131,14 @@ def full_models(default_models):
 
 
 @pytest.fixture(scope='module')
-def phase_snapshots(models):
+def phase_snapshots(models, tmp_path_factory):
     """blom_tpu's state before and after each phase of the first two
-    steps, run eagerly phase by phase."""
-    jm, _ = models
+    steps, run eagerly phase by phase, once per run."""
+    return shared(tmp_path_factory, 'slice_phase_snapshots',
+                  lambda: _phase_snapshots(models[0]))
+
+
+def _phase_snapshots(jm):
     g, e, par = jm.grid, jm.e, jm.par
     s = jm.state
     snaps = {}
@@ -288,8 +295,6 @@ def test_entry_point_needs_cuda_or_device(monkeypatch):
 
 
 @pytest.mark.parametrize('change', [
-    dict(ale=tal.make_ale_params(8)._replace(regrid_method='direct')),
-    dict(ale=tal.make_ale_params(8)._replace(reconstruction_method='pqm')),
     dict(ltedtp='neutral', difest=tdf.DifestParams(egc=.85, egmndf=100.)),
     dict(advmth='remap'),
     dict(thermf=tstep.ThermfParams(trxday=30.))])
@@ -301,9 +306,39 @@ def test_unported_phases_raise(models, change):
                         tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.)
 
 
+@pytest.mark.parametrize('change', [dict(regrid_method='direct'),
+                                    dict(reconstruction_method='pqm')])
+def test_ale_methods_match_blom_tpu(full_models, change):
+    """The ALE methods the port once refused here: one full step of
+    each, phase by phase from blom_tpu's state before each phase, within
+    1e-12 (barotp 1e-8); check_supported takes them.  blom_tpu runs op by
+    op (jax.disable_jit): the direct regrid leaves layers ~60 Pa thin,
+    and across them ale_vdifft's tridiagonal solve turns the multiply-adds
+    that XLA contracts in blom_tpu's compiled scan into 1.7e-10 of T and
+    S."""
+    jm, tm = (dataclasses.replace(mo, par=mo.par._replace(
+        ale=mo.par.ale._replace(**change))) for mo in full_models)
+    tstep.check_supported(tm.grid, tm.par)
+    with jax.disable_jit():
+        snaps = full_step_snapshots(jm, jm.state, jm.dfl, jm.clock.delt1,
+                                    parities=((0, 1),))
+    for (_, phase), (m, n, d1, (before, dfl, extra), after) in snaps.items():
+        s = convert.state_from_numpy(_np_fields(before))
+        tdfl = convert.diffusion_fields_from_numpy(_np_fields(dfl))
+        out = _full_port_phase(tm, phase, m, n, d1, s, tdfl, extra)
+        pairs = (list(zip(after, out)) if phase == 'diffus'
+                 else [(after, out)])
+        tol = 1e-8 if phase == 'barotp' else 1e-12
+        for ref, port in pairs:
+            errs = _rel_errors_any(ref, port)
+            bad = {k: v for k, v in errs.items() if v > tol}
+            assert not bad, (phase, bad)
+
+
 @pytest.mark.parametrize('option', ['kpp', 'tidal', 'isopyc_kpp',
                                     'itrtke'])
-def test_vertical_physics_options_match_blom_tpu(full_models, option):
+def test_vertical_physics_options_match_blom_tpu(full_models,
+                                                tmp_path_factory, option):
     """The options the port once refused here: KPP, the tidal term (a
     float twedon), KPP on the isopycnic coordinate and the TKE slots on
     the ALE path (where neither package runs the closure).  One step of
@@ -314,7 +349,8 @@ def test_vertical_physics_options_match_blom_tpu(full_models, option):
     from tests.test_torch_tke import with_tke_slots
     coord = 'isopyc' if option == 'isopyc_kpp' else 'ale'
     if coord == 'isopyc':
-        jm = jst.build_fuk95(vcoord='isopyc_bulkml', **SIZE)
+        jm = shared_build(tmp_path_factory, jst.build_fuk95,
+                          vcoord='isopyc_bulkml', **SIZE)
         tm = tst.build_fuk95(vcoord='isopyc_bulkml', device='cpu', **SIZE)
     else:
         jm, tm = full_models
@@ -394,11 +430,13 @@ def full_step_snapshots(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
 
 
 @pytest.fixture(scope='module')
-def full_snapshots(full_models):
+def full_snapshots(full_models, tmp_path_factory):
     """blom_tpu's inputs and outputs of every phase of the first two
-    full steps, run eagerly phase by phase."""
+    full steps, run eagerly phase by phase, once per run."""
     jm, _ = full_models
-    return full_step_snapshots(jm, jm.state, jm.dfl, jm.clock.delt1)
+    return shared(tmp_path_factory, 'slice_full_snapshots',
+                  lambda: full_step_snapshots(jm, jm.state, jm.dfl,
+                                              jm.clock.delt1))
 
 
 def _full_port_phase(tm, name, m, n, d1, s, dfl, extra):

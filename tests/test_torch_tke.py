@@ -38,6 +38,7 @@ from tests.test_torch_kpp import (ISOPYC_PHASES, VRef, _forcing, _kpp_state,
                                   phase_errors)
 from tests.test_torch_tracers import _np_fields, _port_state, _rel_errors
 from tests.test_torch_slice import FULL_PHASES
+from tests.torch_shared import shared_build
 
 TOL = 1e-12
 CONSTANTS = (
@@ -148,12 +149,13 @@ def with_tke_slots(jm, tm, itrtke, itrgls):
 
 
 @pytest.mark.parametrize('itrgls', [1, -1])
-def test_isopyc_step_with_closure_matches_blom_tpu(itrgls):
+def test_isopyc_step_with_closure_matches_blom_tpu(tmp_path_factory, itrgls):
     """Every phase of two steps (both parities), the closure between the
     estimator and diapfl; the closure raises TKE above its floor at the
     bottom and, with itrgls -1, leaves slot 1 to the transport."""
     size = dict(vcoord='isopyc_bulkml', **ISOPYC_SIZE)
-    jm, tm = with_tke_slots(jst.build_fuk95(**size),
+    jm, tm = with_tke_slots(shared_build(tmp_path_factory, jst.build_fuk95,
+                                         **size),
                             tst.build_fuk95(device='cpu', **size), 0, itrgls)
     tstep.check_supported(tm.grid, tm.par)
     rec, js = VRef(jm, 'isopyc').run(2, ISOPYC_PHASES)
@@ -168,10 +170,11 @@ def test_isopyc_step_with_closure_matches_blom_tpu(itrgls):
                                           np.asarray(s.trc[n, 1]))
 
 
-def test_ale_step_with_tke_slots_runs_no_closure():
+def test_ale_step_with_tke_slots_runs_no_closure(tmp_path_factory):
     """On the ALE path blom_tpu runs no closure: the slots are tracers.
     Every phase of two steps, both parities."""
-    jm, tm = with_tke_slots(jst.build_fuk95(**ALE_SIZE),
+    jm, tm = with_tke_slots(shared_build(tmp_path_factory, jst.build_fuk95,
+                                         **ALE_SIZE),
                             tst.build_fuk95(device='cpu', **ALE_SIZE), 0, 1)
     tstep.check_supported(tm.grid, tm.par)
     rec, js = VRef(jm, 'ale').run(2, FULL_PHASES)
@@ -187,9 +190,10 @@ def test_ale_step_with_tke_slots_runs_no_closure():
 
 
 @pytest.mark.parametrize('itrgls', [1, -1])
-def test_tripolar_tke_closure_matches_blom_tpu(itrgls):
+def test_tripolar_tke_closure_matches_blom_tpu(tmp_path_factory, itrgls):
     size = dict(itdm=16, jtdm=12, kdm=6)
-    jm, tm = with_tke_slots(jst.build_tripolar(**size),
+    jm, tm = with_tke_slots(shared_build(tmp_path_factory,
+                                         jst.build_tripolar, **size),
                             tst.build_tripolar(device='cpu', **size), 0,
                             itrgls)
     rng = np.random.default_rng(9)

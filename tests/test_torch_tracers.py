@@ -53,6 +53,7 @@ from blom_tpu_torch.tracers import idlage as tidl
 from tests.test_torch_isopyc import _RefPhases
 from tests.test_torch_isopyc import _port_phase as isopyc_port_phase
 from tests.test_torch_slice import FULL_PHASES, FULL_TOL, _full_port_phase
+from tests.torch_shared import shared_build
 
 ALE_SIZE = dict(itdm=24, jtdm=8, kdm=8)
 ISOPYC_SIZE = dict(itdm=24, jtdm=8, kdm=10)
@@ -122,12 +123,13 @@ def _rel_errors(ref, port):
 
 # ------------------------------------------------------------ ideal age
 
-def test_idlage_matches_blom_tpu():
+def test_idlage_matches_blom_tpu(tmp_path_factory):
     m = tst.build_fuk95(use_idlage=True, device='cpu', **ALE_SIZE)
     rng = np.random.default_rng(2)
     d = _np_fields(m.state)
     d['trc'] = rng.uniform(0., 1e-4, d['trc'].shape)
-    js = jst.build_fuk95(use_idlage=True, **ALE_SIZE).state
+    js = shared_build(tmp_path_factory, jst.build_fuk95, use_idlage=True,
+                      **ALE_SIZE).state
     js = dataclasses.replace(js, trc=jax.numpy.asarray(d['trc']))
     for n, d1 in ((0, 180.), (1, 360.)):
         ref = jidl.idlage_step(js, 0, n, d1)
@@ -243,12 +245,12 @@ def _port(tm, coord, name, m, n, d1, s, dfl, extra):
     return _full_port_phase(tm, name, m, n, d1, s, dfl, extra)
 
 
-def _models(coord):
+def _models(coord, tmp_path_factory):
     if coord == 'isopyc':
         size = dict(vcoord='isopyc_bulkml', **ISOPYC_SIZE)
     else:
         size = ALE_SIZE
-    jm = jst.build_fuk95(**TRACERS, **size)
+    jm = shared_build(tmp_path_factory, jst.build_fuk95, **TRACERS, **size)
     tm = tst.build_fuk95(device='cpu', **TRACERS, **size)
     if coord == 'ale':
         # bench.py's physics
@@ -263,11 +265,11 @@ STEPS = {'ale': 2, 'isopyc': 3}
 
 
 @pytest.mark.parametrize('coord', ['ale', 'isopyc'])
-def test_tracer_step_matches_blom_tpu(coord):
+def test_tracer_step_matches_blom_tpu(tmp_path_factory, coord):
     """Every phase of the first steps from blom_tpu's state before it,
     then three steps of standalone.run against blom_tpu's phases
     chained, then the port's invariants."""
-    jm, tm = _models(coord)
+    jm, tm = _models(coord, tmp_path_factory)
     assert tm.state.trc.shape[1] == 20
     np.testing.assert_array_equal(tm.state.trc.numpy(),
                                   np.asarray(jm.state.trc))

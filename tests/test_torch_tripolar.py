@@ -53,6 +53,7 @@ from blom_tpu_torch.parallel import arctic as tarc
 from tests.test_torch_slice import (FULL_PHASES, _full_port_phase,
                                     _np_fields, _rel_errors,
                                     _rel_errors_any, full_step_snapshots)
+from tests.torch_shared import shared, shared_build
 
 SIZE = dict(itdm=16, jtdm=12, kdm=6)
 KINDS = ('p', 'u', 'q', 'v')
@@ -124,7 +125,7 @@ def test_xi_pairs_match_blom_tpu(axis):
         _same(port, ref)
 
 
-def test_sync_state_matches_blom_tpu():
+def test_sync_state_matches_blom_tpu(tmp_path_factory):
     """Every name of STATE_KINDS and the xi pairs is a field of the
     port's State; sync_state rewrites exactly those, as blom_tpu's does on
     the same random state, leaves the other fields the same tensors and
@@ -137,7 +138,7 @@ def test_sync_state_matches_blom_tpu():
         n for pairs in (tarc.XI_PAIRS_U, tarc.XI_PAIRS_V)
         for pair in pairs for n in pair}
     assert len(synced) == 66 and synced <= names
-    jm = jst.build_tripolar(**SIZE)
+    jm = shared_build(tmp_path_factory, jst.build_tripolar, **SIZE)
     rng = np.random.default_rng(3)
     d = {name: (np.asarray(a) if name == 'kfpla'
                 else rng.normal(size=np.shape(a)))
@@ -179,10 +180,10 @@ def test_arctic_cppm_coeffs_match_blom_tpu(axis, periodic):
 
 
 @pytest.fixture(scope='module')
-def models():
+def models(tmp_path_factory):
     """Both packages' build_tripolar at SIZE."""
-    return jst.build_tripolar(**SIZE), tst.build_tripolar(device='cpu',
-                                                          **SIZE)
+    return (shared_build(tmp_path_factory, jst.build_tripolar, **SIZE),
+            tst.build_tripolar(device='cpu', **SIZE))
 
 
 def test_build_matches_blom_tpu(models):
@@ -239,9 +240,10 @@ def advanced(models):
 
 
 @pytest.fixture(scope='module')
-def snapshots(advanced):
+def snapshots(advanced, tmp_path_factory):
     jm, _, d1 = advanced
-    return full_step_snapshots(jm, jm.state, jm.dfl, d1)
+    return shared(tmp_path_factory, 'tripolar_snapshots',
+                  lambda: full_step_snapshots(jm, jm.state, jm.dfl, d1))
 
 
 @pytest.mark.parametrize('phase', FULL_PHASES + ('arctic_sync',))
