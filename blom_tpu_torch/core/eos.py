@@ -1,13 +1,12 @@
 """Equation of state: rational-function fit of in-situ density.
 
 Counterpart of the functions of `blom_tpu/core/eos.py` that pgforc,
-pbcor2, the initial state, the ALE regrid, cmnfld, the vertical mixing
-and the isopycnic phases (convec, diapfl, mxlayr) use (BLOM's
-mod_eos.F90).  In-situ density
-is rho(p, th, s) = P1/P2 with P1, P2 bilinear in p and quadratic in
-(th, s).  Every function is elementwise on tensors and computes in the
-dtype of its inputs; coefficients live in an `EosParams` built by
-`init_eos(pref, expcnf)`."""
+pbcor2, the initial state, the ALE regrid, cmnfld, the vertical mixing,
+the isopycnic phases (convec, diapfl, mxlayr) and neutral diffusion use
+(BLOM's mod_eos.F90).  In-situ density is rho(p, th, s) = P1/P2 with
+P1, P2 bilinear in p and quadratic in (th, s).  Every function is
+elementwise on tensors and computes in the dtype of its inputs;
+coefficients live in an `EosParams` built by `init_eos(pref, expcnf)`."""
 
 from __future__ import annotations
 
@@ -150,6 +149,22 @@ def sig0(e: EosParams, th, s):
              + (e.ap130 + e.ap160 * s) * s)
             / (e.ap210 + (e.ap220 + e.ap240 * th + e.ap250 * s) * th
                + (e.ap230 + e.ap260 * s) * s))
+
+
+def drhodt(p, th, s):
+    """d(rho)/d(th) [kg m-3 K-1] (mod_eos.F90:229-252)."""
+    r1 = _p1(p, th, s)
+    r2i = 1.0 / _p2(p, th, s)
+    return ((a12 + 2.0 * a14 * th + a15 * s + b12 * p
+             - (a22 + 2.0 * a24 * th + a25 * s + b22 * p) * r1 * r2i) * r2i)
+
+
+def drhods(p, th, s):
+    """d(rho)/d(s) [kg m-3] (mod_eos.F90:284-308)."""
+    r1 = _p1(p, th, s)
+    r2i = 1.0 / _p2(p, th, s)
+    return ((a13 + a15 * th + 2.0 * a16 * s + b13 * p
+             - (a23 + a25 * th + 2.0 * a26 * s + b23 * p) * r1 * r2i) * r2i)
 
 
 def dsigdt(e: EosParams, th, s):

@@ -1,9 +1,11 @@
-"""Layer thickness and tracer advection, CPPM branch.
+"""Layer thickness and tracer advection driver.
 
-Counterpart of the CPPM branch of `blom_tpu/dynamics/advect.py`
-(BLOM's mod_advect.F90:59-189): CFL-clamped flux areas cau/cav from the
+Counterpart of `blom_tpu/dynamics/advect.py` (BLOM's
+mod_advect.F90:59-189): CFL-clamped flux areas cau/cav from the
 mid-level baroclinic velocity, the predicted barotropic transport and
-the eddy/submesoscale transports (mod_advect.F90:71-94), then the
+the eddy/submesoscale transports (mod_advect.F90:71-94), then either
+incremental remapping (advmth='remap', mod_advect.F90:96-153; not on a
+tripolar grid) or, for every other advmth as in blom_tpu, the
 Strang-split CPPM sweeps (mod_cppm.F90:2748-2834), the j-sweep on a
 tripolar grid over the fold-extended domain."""
 
@@ -16,6 +18,7 @@ from ..core.grid import Grid
 from ..core.state import State, cumulative_p
 from .cppm import NGHOST_ARCTIC, CppmCoeffs, cppm_sweep, dpeps
 from .diffusion_fields import DiffusionFields
+from .remap import remap_layer
 
 
 def advect(grid: Grid, s: State, dfl: DiffusionFields,
@@ -26,12 +29,6 @@ def advect(grid: Grid, s: State, dfl: DiffusionFields,
            cppm_limiting: str = 'non_oscillatory') -> State:
     """Advect dp, temp, saln and passive tracers of level n; accumulate
     the mass and tracer fluxes of level m.  Updates `s` in place."""
-    if advmth == 'remap' and grid.arctic:
-        raise NotImplementedError(
-            "advmth='remap' does not support tripolar grids yet; "
-            "use advmth='cppm' (fold-aware j-sweeps)")
-    if advmth != 'cppm':
-        raise NotImplementedError(f'advmth={advmth!r} is not ported')
     iu, iv, ip = grid.iu, grid.iv, grid.ip
 
     # ---- flux areas (mod_advect.F90:71-94)
@@ -49,6 +46,13 @@ def advect(grid: Grid, s: State, dfl: DiffusionFields,
             / torch.clamp(s.dpv[n], min=onemm))
     cav = torch.clamp(ca_v, -grid.vmax * dtdl_v, grid.vmax * dtdl_v) * iv
     s.cau, s.cav = cau, cav
+
+    if advmth == 'remap':
+        if grid.arctic:
+            raise NotImplementedError(
+                "advmth='remap' does not support tripolar grids yet; "
+                "use advmth='cppm' (fold-aware j-sweeps)")
+        return _advect_remap(grid, s, m, n)
 
     # ---- CPPM Strang-split sweeps: i first on odd steps; with
     # m = (nstep+1) % 2, odd nstep <=> m == 0
@@ -111,4 +115,46 @@ def advect(grid: Grid, s: State, dfl: DiffusionFields,
     s.usflx[m] += htfu[1] * iu
     s.vtflx[m] += htfv[0] * iv
     s.vsflx[m] += htfv[1] * iv
+    return s
+
+
+def _advect_remap(grid: Grid, s: State, m: int, n: int) -> State:
+    """Incremental-remapping branch (mod_advect.F90:96-153): the 9-point
+    minimum bottom pressure with wet-neighbour fallbacks, then one remap
+    of every layer at once, the tracer stack (temp, saln, trc) as
+    (ntr, K, J, I)."""
+    ip, iu, iv = grid.ip, grid.iu, grid.iv
+    p_i = cumulative_p(s.dp[n])
+    pbot = p_i[-1]
+
+    # pbmin: 9-point min with land fallback to the centre
+    # (mod_advect.F90:103-119)
+    w_ok = iu > 0.
+    e_ok = grid.ip1(iu) > 0.
+    s_ok = iv > 0.
+    n_ok = grid.jp1(iv, 'v') > 0.
+    pbmin = pbot
+    for di, dj, ok in ((-1, 0, w_ok), (1, 0, e_ok), (0, -1, s_ok),
+                       (0, 1, n_ok), (-1, -1, w_ok & s_ok),
+                       (1, -1, e_ok & s_ok), (-1, 1, w_ok & n_ok),
+                       (1, 1, e_ok & n_ok)):
+        wet = grid.shift(ip, di, dj) > 0.
+        pbmin = torch.minimum(pbmin, torch.where(
+            ok & wet, grid.shift(pbot, di, dj), pbot))
+
+    tr = torch.cat([s.temp[n][None], s.saln[n][None], s.trc[n]], 0)
+    dp_new, tr_new, fdu, fdv, ftru, ftrv = remap_layer(
+        grid, pbmin, s.pbu[n], s.pbv[n], p_i[1:], s.cau, s.cav, s.dp[n],
+        tr)
+
+    s.trc[n] = tr_new[2:] * ip
+    s.dp[n] = dp_new
+    s.temp[n] = tr_new[0] * ip
+    s.saln[n] = tr_new[1] * ip
+    s.uflx[m] += fdu * iu
+    s.vflx[m] += fdv * iv
+    s.utflx[m] += ftru[0] * iu
+    s.usflx[m] += ftru[1] * iu
+    s.vtflx[m] += ftrv[0] * iv
+    s.vsflx[m] += ftrv[1] * iv
     return s

@@ -3,11 +3,13 @@
 Counterpart of `blom_tpu/dynamics/step.py` (BLOM's
 mod_blom_step.F90:74-324) for both vertical coordinates.  The ALE
 (cntiso_hybrid) step: tmsmt1, the ALE regrid/remap, cmnfld with the
-lateral diffusivities and the GM eddy transport, advect (CPPM), pbcor1,
-the along-layer lateral diffusion, pgforc (dynamic enthalpy or
-geopotential), momtum, the vertical mixing (CVMix-lite or KPP, with the
-tidal term when set) with the implicit vertical diffusion of tracers and
-momentum, barotp, pbcor2 and tmsmt2.  The isopycnic (isopyc_bulkml)
+lateral diffusivities and the GM eddy transport, advect (CPPM, or
+incremental remapping with advmth='remap'), pbcor1, the lateral
+diffusion (along layers, or along neutral surfaces with
+ltedtp='neutral'), pgforc (dynamic enthalpy or geopotential), momtum,
+the vertical mixing (CVMix-lite or KPP, with the tidal term when set)
+with the implicit vertical diffusion of tracers and momentum, barotp,
+pbcor2 and tmsmt2.  The isopycnic (isopyc_bulkml)
 step: no regrid, the isopycnic GM (eddtra_isopyc) when egc > 0, the
 mixed-layer wind stress in momtum, then convec, the diapycnal mixing
 (diapfl) with the estimator's diffusivity, merged with the TKE/GLS
@@ -18,8 +20,8 @@ tripolar grid the step ends with the fold's top-row sync (sync_state).
 On either coordinate the tracers' source terms follow the vertical physics:
 the ideal age (idlage_step) and the BGC chain (hamocc_step).  Each
 phase runs under blom_tpu's guard.  `check_supported` raises
-NotImplementedError naming every option the port does not run (see
-there).
+NotImplementedError naming the option the port does not run (surface
+restoring).
 
 The step updates the State in place; m, n are the Python-int time-level
 slots and delt1 a Python float.  The eddy-transport limiter reads one
@@ -34,7 +36,7 @@ import torch
 
 from ..bgc.step import BgcForcing, hamocc_step
 from ..core import eos
-from ..core.constants import epsilp, grav
+from ..core.constants import epsilp, grav, onem
 from ..core.grid import Grid
 from ..core.state import State, cumulative_p
 from ..phys import tke
@@ -56,6 +58,7 @@ from .diffusion_fields import DiffusionFields
 from .eddtra import eddtra, eddtra_isopyc
 from .momtum import MomtumParams, momtum
 from .mxlayr import MxlayrParams, mxlayr
+from .ndiff import ndiff
 from .pbcor import pbcor1, pbcor2
 from .pgforc import pgforc
 from .tmsmt import tmsmt1, tmsmt2
@@ -102,24 +105,14 @@ def _diffus_on(par: StepParams) -> bool:
 
 
 def check_supported(grid: Grid, par: StepParams):
-    """Raise NotImplementedError, naming the option, for anything this
-    port does not run: neutral diffusion, other advection schemes and
-    surface restoring.  On the isopycnic path the message says so; that
-    path diffuses along layers whatever ltedtp says, as blom_tpu's step
-    does."""
-    missing = []
-    if _diffus_on(par) and par.ltedtp == 'neutral' \
-            and not par.vcoord_isopyc:
-        missing.append("neutral diffusion (ltedtp='neutral')")
-    if par.advmth != 'cppm':
-        missing.append(f'advection advmth={par.advmth!r}')
+    """Raise NotImplementedError, naming the option, for what this port
+    does not run: surface restoring.  On the isopycnic path the message
+    says so."""
     if par.thermf is not None and (par.thermf.trxday > 0.
                                    or par.thermf.srxday > 0.):
-        missing.append('surface restoring (par.thermf)')
-    if missing:
         where = ' (isopycnic coordinate)' if par.vcoord_isopyc else ''
         raise NotImplementedError(f'not ported to blom_tpu_torch{where}: '
-                                  + '; '.join(missing))
+                                  'surface restoring (par.thermf)')
 
 
 def _difest_v(par: StepParams):
@@ -234,10 +227,17 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     _mark('pbcor1')
     s = pbcor1(grid, s, m, n, dlt)
 
-    # along-layer lateral tracer diffusion (mod_blom_step.F90:152)
+    # lateral tracer diffusion: along layers (mod_blom_step.F90:152
+    # diffus; along isopycnals on the isopycnic coordinate) or along
+    # neutral surfaces (BLOM runs it in the ale_regrid_remap jslice
+    # pipeline, mod_ale_regrid_remap.F90:1643-1670)
     if _diffus_on(par):
-        _mark('diffus')
-        s, dfl = diffus(grid, e, s, dfl, m, n, delt1)
+        if par.ltedtp == 'neutral' and not isopyc:
+            _mark('ndiff')
+            s = ndiff(grid, e, s, dfl, m, n, delt1, cf.mld * onem)
+        else:
+            _mark('diffus')
+            s, dfl = diffus(grid, e, s, dfl, m, n, delt1)
 
     _mark('pgforc')
     s = pgforc(grid, e, s, m, n, par.pgfmth)

@@ -153,13 +153,24 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    SALN_REF_SIZE for those 4 steps, its salinity beside blom_tpu's own
    (SALN_REF) within SALN_DEV_DIRECT; highorder_parity: one f64 step of
    each time-level parity under each method at 24x8x8, card against
-   CPU;
+   CPU; transport: fuk95 with bench.py's physics at 384x360x53 in f32
+   under each lateral transport option (TRANSPORT_VARIANTS:
+   incremental-remapping advection, advmth='remap', in place of the
+   CPPM sweeps; neutral diffusion, ltedtp='neutral', in place of the
+   along-layer diffus), 4 timed steps from the initial state after 2:
+   the slice's gates, launches per step (remap: CPPM 0, momentum 1, K1
+   1, K2 1; neutral: CPPM 2, momentum 1, K1 1, K2 1), s/step,
+   grid-points/s, the device time of each phase with 'advect' and
+   'ndiff' apart, the peak device memory allocated, and one call of the
+   option's phase under torch.profiler (its device launches and busy
+   share); transport_parity: one f64 step of each time-level parity
+   under each option at 24x8x8, card against CPU;
 11. the kernels summary line (with the tracer counts each kernel met and
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
    carbon-isotope path, the decks, the tripolar grid, the vertical
-   physics, the high-order ALE methods).
+   physics, the high-order ALE methods, the transport options).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -1001,14 +1012,15 @@ def zero_counters():
 
 def expected_launches(par, arctic=False):
     """{kernel: {instantiation: launches per step}} of a step with `par`:
-    two CPPM sweeps, one momentum launch and on a tripolar grid one of
-    its fold pre-pass, one launch of each ALE kernel when ALE is on with
-    the method the kernels compute (explicit-edge PPM and the nudge
-    regrid; the other methods run plain); every other instantiation
-    0."""
+    two CPPM sweeps (none under incremental remapping, advmth='remap'),
+    one momentum launch and on a tripolar grid one of its fold pre-pass,
+    one launch of each ALE kernel when ALE is on with the method the
+    kernels compute (explicit-edge PPM and the nudge regrid; the other
+    methods run plain); every other instantiation 0."""
     from blom_tpu_torch.dynamics.ale import ale_kernels_ok
+    sweeps = 0 if par.advmth == 'remap' else 2
     out = {'cppm_sweep': {f'{par.cppm_compatibility}/{par.cppm_limiting}':
-                          2},
+                          sweeps},
            'momtum_uv': {par.momtum.mommth: 1},
            'momtum_fold': {par.momtum.mommth: 1} if arctic else {},
            'ale_regrid': {}, 'ale_remap': {}}
@@ -2311,25 +2323,24 @@ def build_highorder(dev, dtype, variant, **size):
     return model
 
 
-def run_highorder(dev, paths):
-    """Each ALE method of HIGHORDER_VARIANTS at the main path's width in
-    f32: warm-up and timed steps, the slice's gates, launches per step
-    (CPPM 2, momentum 1, K1 and K2 0), s/step, the device time of each
-    phase (the 'ale_regrid_remap' phase reported apart) and the peak
-    device memory allocated from the build on (base_mem_bytes: what was
-    allocated before it).  The timed steps start again from the initial
-    state.  Then the direct regrid at SALN_REF_SIZE, as blom_tpu's
-    reading SALN_REF was taken (run_highorder_drift)."""
+def run_variants(dev, paths, phase, variants, build, nsteps, record):
+    """Each variant of `variants` (build(dev, dtype, name, **size) builds
+    it) at the main path's width in f32: nsteps = (warm-up, timed) steps,
+    the slice's gates, launches per step (expected_launches), s/step,
+    grid-points/s, the device time of each phase and the peak device
+    memory allocated from the build on (base_mem_bytes: what was
+    allocated before it), emitted as `phase`, with record(name, model,
+    phase_ms)'s keys.  The timed steps start again from the initial
+    state; their launch counts go to paths[f'fuk95_{name}']."""
     import torch
     from blom_tpu_torch.drivers import standalone
-    warm, nsteps = NSTEPS_HIGHORDER
+    warm, nsteps = nsteps
     ok_all = True
-    for name in HIGHORDER_VARIANTS:
+    for name in variants:
         torch.cuda.reset_peak_memory_stats(dev)
         base_mem = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        model = build_highorder(dev, torch.float32, name, itdm=II, jtdm=JJ,
-                                kdm=KK)
+        model = build(dev, torch.float32, name, itdm=II, jtdm=JJ, kdm=KK)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         mass0 = mass(model, model.state.dp[1])
@@ -2341,25 +2352,57 @@ def run_highorder(dev, paths):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = counters()
-        counts.pop('host_syncs')
+        syncs_n = counts.pop('host_syncs')
         paths[f'fuk95_{name}'] = counts
         ok, rec = slice_gates(model, s, nsteps, mass0)
         ok &= launches_ok(counts, model.par, nsteps)
         step_ms, phase_ms = profile_phases(model, 2,
-                                           f'highorder_{name}_phase_profile')
-        emit('highorder', variant=name, ale=model.par.ale._asdict(),
-             shape=[KK, JJ, II], dtype='float32', build_seconds=build_s,
-             warmup_steps=warm, steps=nsteps, ok=ok, **rec,
-             saln_tol=(SALN_DEV_DIRECT if name == 'direct'
-                       else SALN_DEV_ALE),
-             launches=counts, seconds_per_step=wall / nsteps,
+                                           f'{phase}_{name}_phase_profile')
+        emit(phase, variant=name, shape=[KK, JJ, II], dtype='float32',
+             build_seconds=build_s, warmup_steps=warm, steps=nsteps, ok=ok,
+             **rec, launches=counts,
+             launches_per_step_expected=expected_launches(model.par),
+             host_syncs_per_step=syncs_n / nsteps,
+             seconds_per_step=wall / nsteps,
              gridpoints_per_s=II * JJ * KK * nsteps / wall,
-             step_ms=step_ms, ale_ms=phase_ms.get('ale_regrid_remap'),
+             step_ms=step_ms, **record(name, model, phase_ms),
              peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
              base_mem_bytes=base_mem)
         ok_all &= ok
         del model, s
-    return ok_all & run_highorder_drift(dev)
+    return ok_all
+
+
+def run_variants_parity(dev, phase, variants, build, size):
+    """One f64 step of each time-level parity under each variant of
+    `variants` at `size`, card against CPU, within STEP_REL."""
+    import torch
+    ok_all = True
+    for name in variants:
+        models = {d: build(d, torch.float64, name, **size)
+                  for d in (dev, 'cpu')}
+        one_step = one_step_parity(models, dev)
+        ok = all(r <= STEP_REL for _, r in one_step.values())
+        emit(phase, variant=name, ok=ok, tolerance=STEP_REL, size=size,
+             one_step=one_step)
+        ok_all &= ok
+    return ok_all
+
+
+def run_highorder(dev, paths):
+    """Each ALE method of HIGHORDER_VARIANTS through run_variants
+    (launches per step CPPM 2, momentum 1, K1 and K2 0; the
+    'ale_regrid_remap' phase reported apart), then the direct regrid at
+    SALN_REF_SIZE, as blom_tpu's reading SALN_REF was taken
+    (run_highorder_drift)."""
+    def record(name, model, phase_ms):
+        return dict(ale=model.par.ale._asdict(),
+                    saln_tol=(SALN_DEV_DIRECT if name == 'direct'
+                              else SALN_DEV_ALE),
+                    ale_ms=phase_ms.get('ale_regrid_remap'))
+    ok = run_variants(dev, paths, 'highorder', HIGHORDER_VARIANTS,
+                      build_highorder, NSTEPS_HIGHORDER, record)
+    return ok & run_highorder_drift(dev)
 
 
 def run_highorder_drift(dev):
@@ -2384,18 +2427,90 @@ def run_highorder_parity(dev):
     """One f64 step of each time-level parity under each ALE method of
     HIGHORDER_VARIANTS at PARITY_HIGHORDER, card against CPU, within
     STEP_REL."""
+    return run_variants_parity(dev, 'highorder_parity', HIGHORDER_VARIANTS,
+                               build_highorder, PARITY_HIGHORDER)
+
+
+# -------------------------------------------------------------- transport
+
+NSTEPS_TRANSPORT = (2, 4)           # warm-up, timed steps
+PARITY_TRANSPORT = dict(itdm=24, jtdm=8, kdm=8)
+# the lateral transport options: incremental-remapping advection in place
+# of the CPPM sweeps, neutral diffusion in place of diffus; both plain
+# PyTorch, as blom_tpu runs them as plain XLA
+TRANSPORT_VARIANTS = {'remap': dict(advmth='remap'),
+                      'neutral': dict(ltedtp='neutral')}
+
+
+def build_transport(dev, dtype, variant, **size):
+    """fuk95 with bench.py's physics and the transport option of
+    `variant`."""
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    model = standalone.build_fuk95(dtype=dtype, device=dev, **size)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST),
+                                   **TRANSPORT_VARIANTS[variant])
+    return model
+
+
+def phase_trace(call):
+    """One call of `call` under torch.profiler: the device activities it
+    recorded (kernel launches, memory copies and sets), their device
+    milliseconds summed, and the call's host-clock milliseconds up to a
+    synchronise (under the profiler); busy_share is their ratio, None
+    where the profiler saw no device time."""
     import torch
-    ok_all = True
-    for name in HIGHORDER_VARIANTS:
-        models = {d: build_highorder(d, torch.float64, name,
-                                     **PARITY_HIGHORDER)
-                  for d in (dev, 'cpu')}
-        one_step = one_step_parity(models, dev)
-        ok = all(r <= STEP_REL for _, r in one_step.values())
-        emit('highorder_parity', variant=name, ok=ok, tolerance=STEP_REL,
-             size=PARITY_HIGHORDER, one_step=one_step)
-        ok_all &= ok
-    return ok_all
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return dict(launches=len(events), device_ms=busy_ms, wall_ms=wall_ms,
+                busy_share=busy_ms / wall_ms if busy_ms > 0 else None)
+
+
+def transport_call(name, model):
+    """A call of the transport option's own phase on a copy of the
+    model's state at level n = 1: advect under incremental remapping,
+    ndiff (with cmnfld's mixed layer) under neutral diffusion."""
+    from blom_tpu_torch.core.constants import onem
+    from blom_tpu_torch.dynamics.advect import advect
+    from blom_tpu_torch.dynamics.cmnfld import cmnfld
+    from blom_tpu_torch.dynamics.ndiff import ndiff
+    g, s, delt1 = model.grid, model.state.clone(), model.clock.delt1
+    if name == 'remap':
+        return lambda: advect(g, s, model.dfl, model.coeffs_i,
+                              model.coeffs_j, 0, 1, delt1, model.par.dlt,
+                              'remap')
+    mld = cmnfld(g, model.e, s, 1).mld * onem
+    return lambda: ndiff(g, model.e, s, model.dfl, 0, 1, delt1, mld)
+
+
+def run_transport(dev, paths):
+    """Each transport option of TRANSPORT_VARIANTS through run_variants
+    (launches per step: remap CPPM 0, neutral CPPM 2; momentum, K1 and K2
+    1 each), the 'advect' and 'ndiff' phases reported apart; then one
+    call of the option's phase traced (phase_trace)."""
+    def record(name, model, phase_ms):
+        return dict(change=TRANSPORT_VARIANTS[name], saln_tol=SALN_DEV_ALE,
+                    advect_ms=phase_ms.get('advect'),
+                    ndiff_ms=phase_ms.get('ndiff'),
+                    diffus_ms=phase_ms.get('diffus'),
+                    phase_trace=phase_trace(transport_call(name, model)))
+    return run_variants(dev, paths, 'transport', TRANSPORT_VARIANTS,
+                        build_transport, NSTEPS_TRANSPORT, record)
+
+
+def run_transport_parity(dev):
+    """One f64 step of each time-level parity under each transport option
+    at PARITY_TRANSPORT, card against CPU, within STEP_REL."""
+    return run_variants_parity(dev, 'transport_parity', TRANSPORT_VARIANTS,
+                               build_transport, PARITY_TRANSPORT)
 
 
 # ------------------------------------------------------------------ decks
@@ -2663,6 +2778,8 @@ def main():
     ok &= run_tke_parity(dev)
     ok &= run_highorder(dev, paths)
     ok &= run_highorder_parity(dev)
+    ok &= run_transport(dev, paths)
+    ok &= run_transport_parity(dev)
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)

@@ -619,7 +619,7 @@ def test_step_matches_blom_tpu(models, egc):
 
 
 @pytest.mark.parametrize('change', [
-    dict(thermf=tstep.ThermfParams(srxday=30.)), dict(advmth='remap')])
+    dict(thermf=tstep.ThermfParams(srxday=30.))])
 def test_isopyc_refusals_name_the_path(models, change):
     """What the port does not run, the isopycnic path refuses too, and
     its message says so."""
@@ -629,6 +629,37 @@ def test_isopyc_refusals_name_the_path(models, change):
         tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
                         tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.,
                         tm.swabs)
+
+
+def test_isopyc_remap_matches_blom_tpu(models):
+    """advmth='remap', which the isopycnic path once refused: advect on
+    the isopycnic initial state (many massless layers) with seeded
+    velocities up to 0.5 m/s, both parities, within TOL of blom_tpu's
+    (run eagerly, as the step's phases are here).  30 % of the layer
+    cells are massless; blom_tpu gives no NaN on them (the remap carries
+    every layer with DPEPS added, so its update never divides by zero),
+    and neither does the port."""
+    jm, tm = models
+    tstep.check_supported(tm.grid, tm.par._replace(advmth='remap'))
+    rng = np.random.default_rng(17)
+    s = jm.state
+    s = dataclasses.replace(
+        s, u=jnp.asarray(rng.uniform(-.5, .5, s.u.shape)) * jm.grid.iu,
+        v=jnp.asarray(rng.uniform(-.5, .5, s.v.shape)) * jm.grid.iv)
+    massless = np.asarray(s.dp) < 1e-3 * tmx.onem
+    assert .2 < massless.mean() < .8
+    for m, n in ((0, 1), (1, 0)):
+        ref = ja.advect(jm.grid, s, jm.dfl, jm.coeffs_i, jm.coeffs_j, m, n,
+                        jm.clock.delt1, jm.par.dlt, 'remap')
+        out = ta.advect(tm.grid, _port_state(s), tm.dfl, tm.coeffs_i,
+                        tm.coeffs_j, m, n, tm.clock.delt1, tm.par.dlt,
+                        'remap')
+        for name, a in _np_fields(ref).items():
+            b = getattr(out, name).numpy()
+            np.testing.assert_allclose(
+                b, a, rtol=0, atol=TOL * np.abs(a).max(initial=0.),
+                err_msg=f'{name} (m={m})')
+        assert np.abs(np.asarray(ref.uflx[m])).max() > 0.
 
 
 @pytest.mark.parametrize('option', ['itrtke', 'itrgls', 'kpp', 'tidal'])

@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from blom_tpu.core.constants import onem
 from blom_tpu.drivers import standalone as jst
 from blom_tpu.dynamics import advect as ja
 from blom_tpu.dynamics import ale as jal
@@ -58,12 +59,14 @@ from blom_tpu.dynamics import difest as jdf
 from blom_tpu.dynamics import diffus as jdi
 from blom_tpu.dynamics import eddtra as jed
 from blom_tpu.dynamics import momtum as jmo
+from blom_tpu.dynamics import ndiff as jnd
 from blom_tpu.dynamics import pbcor as jp
 from blom_tpu.dynamics import pgforc as jg
 from blom_tpu.dynamics import step as jstep
 from blom_tpu.dynamics import tmsmt as jt
 from blom_tpu.phys import vmix as jvm
 from blom_tpu_torch import convert
+from blom_tpu_torch.core import constants as tcst
 from blom_tpu_torch.core.grid import TENSOR_FIELDS
 from blom_tpu_torch.drivers import standalone as tst
 from blom_tpu_torch.dynamics import advect as ta
@@ -75,6 +78,7 @@ from blom_tpu_torch.dynamics import difest as tdf
 from blom_tpu_torch.dynamics import diffus as tdi
 from blom_tpu_torch.dynamics import eddtra as ted
 from blom_tpu_torch.dynamics import momtum as tmo
+from blom_tpu_torch.dynamics import ndiff as tnd
 from blom_tpu_torch.dynamics import pbcor as tp
 from blom_tpu_torch.dynamics import pgforc as tg
 from blom_tpu_torch.dynamics import step as tstep
@@ -295,15 +299,42 @@ def test_entry_point_needs_cuda_or_device(monkeypatch):
 
 
 @pytest.mark.parametrize('change', [
-    dict(ltedtp='neutral', difest=tdf.DifestParams(egc=.85, egmndf=100.)),
-    dict(advmth='remap'),
-    dict(thermf=tstep.ThermfParams(trxday=30.))])
+    dict(thermf=tstep.ThermfParams(trxday=30.))], ids=['change2'])
 def test_unported_phases_raise(models, change):
     _, tm = models
     par = tm.par._replace(**change)
     with pytest.raises(NotImplementedError):
         tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
                         tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.)
+
+
+@pytest.mark.parametrize('option', ['remap', 'neutral'])
+def test_transport_options_match_blom_tpu(full_models, full_snapshots,
+                                          option):
+    """The lateral transport options the port once refused here:
+    incremental-remapping advection (advmth='remap') and neutral
+    diffusion (ltedtp='neutral').  For both parities, the port's advect
+    or ndiff on blom_tpu's inputs of that phase in the full step (the
+    phases before it are the main path's) against blom_tpu's own, within
+    1e-12 (measured: bit for bit); check_supported takes them."""
+    change = (dict(advmth='remap') if option == 'remap'
+              else dict(ltedtp='neutral'))
+    jm, tm = (dataclasses.replace(mo, par=mo.par._replace(**change))
+              for mo in full_models)
+    tstep.check_supported(tm.grid, tm.par)
+    phase = 'advect' if option == 'remap' else 'diffus'
+    for step in (0, 1):
+        m, n, d1, (before, dfl, cf), _ = full_snapshots[(step, phase)]
+        ref = ref_transport(jm, phase, m, n, d1, before, dfl, cf)
+        s = convert.state_from_numpy(_np_fields(before))
+        tdfl = convert.diffusion_fields_from_numpy(_np_fields(dfl))
+        out = _full_port_phase(tm, phase, m, n, d1, s, tdfl, cf)
+        pairs = (list(zip(ref, out)) if phase == 'diffus'
+                 else [(ref, out)])
+        for r, o in pairs:
+            errs = _rel_errors_any(r, o)
+            bad = {k: v for k, v in errs.items() if v > 1e-12}
+            assert not bad, (step, bad)
 
 
 @pytest.mark.parametrize('change', [dict(regrid_method='direct'),
@@ -373,6 +404,23 @@ FULL_PHASES = ('tmsmt1', 'ale', 'cmnfld', 'difest_lateral', 'eddtra',
                'pbcor2', 'tmsmt2')
 
 
+def ref_transport(jm, name, m, n, d1, s, dfl, cf):
+    """blom_tpu's advect ('advect') or lateral diffusion ('diffus') as
+    its step runs them under jm.par: advect by par.advmth; along neutral
+    surfaces with ltedtp 'neutral' on the ALE path (the mixed-layer
+    pressure from cmnfld's fields cf; run op by op: see
+    test_torch_ndiff.py), along layers otherwise.  The diffusion returns
+    (state, diffusion fields)."""
+    g, e, par = jm.grid, jm.e, jm.par
+    if name == 'advect':
+        return ja.advect(g, s, dfl, jm.coeffs_i, jm.coeffs_j, m, n, d1,
+                         par.dlt, par.advmth)
+    if par.ltedtp == 'neutral' and not par.vcoord_isopyc:
+        with jax.disable_jit():
+            return jnd.ndiff(g, e, s, dfl, m, n, d1, cf.mld * onem), dfl
+    return jdi.diffus(g, e, s, dfl, m, n, d1)
+
+
 def full_step_snapshots(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
     """blom_tpu's inputs and outputs of every phase of one full step of
     model `jm` per parity (m, n), from state `s` and diffusion fields
@@ -394,12 +442,11 @@ def full_step_snapshots(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
         snaps[(step, 'eddtra')] = (m, n, d1, (s, dfl, cf), dfl := (
             jed.eddtra(g, s, cf, dfl, m, n, d1)))
         snaps[(step, 'advect')] = (m, n, d1, (s, dfl, None), s := (
-            ja.advect(g, s, dfl, jm.coeffs_i, jm.coeffs_j, m, n, d1,
-                      par.dlt)))
+            ref_transport(jm, 'advect', m, n, d1, s, dfl, None)))
         snaps[(step, 'pbcor1')] = (m, n, d1, (s, dfl, None), s := (
             jp.pbcor1(g, s, m, n, par.dlt)))
-        before = (s, dfl, None)
-        s, dfl = jdi.diffus(g, e, s, dfl, m, n, d1)
+        before = (s, dfl, cf)
+        s, dfl = ref_transport(jm, 'diffus', m, n, d1, s, dfl, cf)
         snaps[(step, 'diffus')] = (m, n, d1, before, (s, dfl))
         snaps[(step, 'pgforc')] = (m, n, d1, (s, dfl, None), s := (
             jg.pgforc(g, e, s, m, n)))
@@ -443,6 +490,12 @@ def _full_port_phase(tm, name, m, n, d1, s, dfl, extra):
     """The port's phase `name` on converted inputs; returns what the
     snapshot holds for it."""
     g, e, par = tm.grid, tm.e, tm.par
+    if name == 'diffus' and par.ltedtp == 'neutral' \
+            and not par.vcoord_isopyc:
+        cf = convert.cmn_fields_from_numpy(
+            {k: np.asarray(v) for k, v in extra._asdict().items()})
+        return (tnd.ndiff(g, e, s, dfl, m, n, d1, cf.mld * tcst.onem),
+                dfl)
     if name == 'ale':
         return tal.ale_regrid_remap(g, e, par.ale, s, m, n, d1)
     if name == 'cmnfld':
@@ -465,7 +518,7 @@ def _full_port_phase(tm, name, m, n, d1, s, dfl, extra):
         return tvd.ale_vdiffm(g, s, vf, m, n, d1)
     if name == 'advect':
         return ta.advect(g, s, dfl, tm.coeffs_i, tm.coeffs_j, m, n, d1,
-                         par.dlt)
+                         par.dlt, par.advmth)
     if name == 'momtum':
         return tmo.momtum(g, s, tm.forcing, par.momtum, dfl.difwgt, m, n,
                           d1, par.dlt)[0]
