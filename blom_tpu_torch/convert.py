@@ -3,7 +3,8 @@
 The dicts are keyed by the field names the JAX package uses (they match
 the port's), so a caller can carry a blom_tpu Grid, State (its tracers
 included), CppmCoeffs, Forcing, BgcForcing, the sediment's SedState,
-DiffusionFields, SwabsFields, CmnFields or VmixFields across with
+DiffusionFields, SwabsFields, CmnFields or VmixFields, and the surface
+physics' SeaiceState, Ben02State, Ben02Clim and NiwState, across with
 ``np.asarray`` on each field.  The BGC's TracerIndex and CisoParams are
 plain Python and cross as they are.
 Nothing here touches a JAX object."""
@@ -22,7 +23,10 @@ from .core.state import State
 from .dynamics.cmnfld import CmnFields
 from .dynamics.cppm import CppmCoeffs
 from .dynamics.diffusion_fields import DiffusionFields
+from .phys.ben02 import Ben02Clim, Ben02State
 from .phys.forcing import Forcing
+from .phys.niw import NiwState
+from .phys.seaice import SeaiceState
 from .phys.swabs import SwabsFields
 from .phys.vmix import VmixFields
 
@@ -87,3 +91,22 @@ def cmn_fields_from_numpy(d, dtype=torch.float64, device='cpu') -> CmnFields:
 def vmix_fields_from_numpy(d, dtype=torch.float64,
                            device='cpu') -> VmixFields:
     return VmixFields(**_fields(VmixFields, d, dtype, device))
+
+
+def seaice_from_numpy(d, dtype=torch.float64, device='cpu') -> SeaiceState:
+    return SeaiceState(**_fields(SeaiceState, d, dtype, device))
+
+
+def ben02_state_from_numpy(d, dtype=torch.float64,
+                           device='cpu') -> Ben02State:
+    return Ben02State(**_fields(Ben02State, d, dtype, device))
+
+
+def ben02_clim_from_numpy(d, dtype=torch.float64,
+                          device='cpu') -> Ben02Clim:
+    return Ben02Clim(**{k: _t(d[k], dtype, device)
+                        for k in Ben02Clim._fields})
+
+
+def niw_from_numpy(d, dtype=torch.float64, device='cpu') -> NiwState:
+    return NiwState(**_fields(NiwState, d, dtype, device))

@@ -2,7 +2,8 @@
 
 The port's own copy of the part of `blom_tpu/core/calendar.py` that the
 fuk95 and channel clocks need (BLOM's mod_calendar.F90): the '360_day'
-calendar.  Dates map to a day number so that offsets are integer
+calendar, with the day of the year that the climatologies' time
+interpolation reads.  Dates map to a day number so that offsets are integer
 arithmetic.  Pure Python, host side only."""
 
 from __future__ import annotations
@@ -52,3 +53,13 @@ def daynum_diff(calendar: str, d1: Date, d2: Date) -> int:
 def date_offset(calendar: str, d: Date, ndays: int) -> Date:
     """Date offset by ndays."""
     return daynum_to_date(calendar, date_to_daynum(calendar, d) + ndays)
+
+
+def days_in_year(calendar: str, year: int) -> int:
+    """Days in `year`."""
+    return daynum_diff(calendar, Date(year, 1, 1), Date(year + 1, 1, 1))
+
+
+def day_of_year(calendar: str, d: Date) -> int:
+    """1-based day of the year (mod_time.F90 set_day_of_year)."""
+    return daynum_diff(calendar, Date(d.year, 1, 1), d) + 1

@@ -1,8 +1,10 @@
 """Model clock: baroclinic/barotropic step bookkeeping.
 
 The port's own copy of the part of `blom_tpu/core/modeltime.py` that
-`init_timevars` of the fuk95 and channel experiments and the delt1
-schedule of the standalone driver need (BLOM's mod_time.F90).  The
+`init_timevars` of the fuk95 and channel experiments, the delt1
+schedule of the standalone driver and the climatologies' time
+interpolation (`month_interp`, `phys/swabs.py` `updswa`) need (BLOM's
+mod_time.F90).  The
 clock is advanced on the host once per baroclinic step; only `delt1`
 enters the step, as a Python float.  The first steps from initial conditions are forward
 (delt1 = baclin), later steps leap-frog (delt1 = 2*baclin)."""
@@ -42,6 +44,14 @@ class ModelTime:
         """Forward step from IC, leap-frog afterwards (mod_time.F90:49-55)."""
         return self.baclin if self.nstep <= 1 else 2.0 * self.baclin
 
+    @property
+    def nday_in_year(self) -> int:
+        return cal.days_in_year(self.calendar, self.date.year)
+
+    @property
+    def nday_of_year(self) -> int:
+        return cal.day_of_year(self.calendar, self.date)
+
     def step(self) -> "ModelTime":
         """Advance one baroclinic step (mod_time.F90:185-218)."""
         nstep = self.nstep + 1
@@ -50,6 +60,26 @@ class ModelTime:
         if nstep % self.nstep_in_day == 0:
             date = cal.date_offset(self.calendar, date, 1)
         return dataclasses.replace(self, nstep=nstep, time=time, date=date)
+
+    def month_interp(self):
+        """Monthly-climatology interpolation weights (mod_time.F90:203-218):
+        (xmi, l1, l2, l3, l4, l5), the fractional position within the
+        current month slot and the five surrounding months (1-12)."""
+        xmi = ((self.nday_of_year - 1
+                + (self.nstep % self.nstep_in_day) / self.nstep_in_day)
+               * 12.0 / self.nday_in_year)
+        l3 = int(xmi) + 1
+        xmi = xmi - (l3 - 1)
+        l1 = (l3 + 9) % 12 + 1
+        l2 = (l3 + 10) % 12 + 1
+        l4 = l3 % 12 + 1
+        l5 = (l3 + 1) % 12 + 1
+        return xmi, l1, l2, l3, l4, l5
+
+    def ymd_tod(self):
+        """(YYYYMMDD, seconds of the day) (mod_time.F90 blom_time)."""
+        return (self.date.to_ymd(),
+                round((self.nstep % self.nstep_in_day) * self.baclin))
 
 
 def init_timevars(expcnf: str, baclin: float, batrop: float,

@@ -32,7 +32,7 @@ gbbl = .2
 kappa = .4
 ustmin = 1.e-4
 
-TMIN = -3.      # massless-fill temperature floor [C] (blom_tpu's default)
+TMIN = -3.      # massless-fill temperature floor [C] without a temmin
 N_LIMIT = 6     # flux-limit sweeps (the reference loops to convergence)
 N_SOLVE = 24    # alternating down/up backward-solve passes
 
@@ -107,9 +107,11 @@ def _backward_core(q, r, t):
 
 
 def diapfl(grid: Grid, e: eos.EosParams, s: State, difdia, m: int,
-           n: int, delt1) -> State:
+           n: int, delt1, temmin=None) -> State:
     """Diapycnal mixing of time level n, in place.  difdia: (kk, jdm,
-    idm) diapycnal diffusivity [m2 s-1]."""
+    idm) diapycnal diffusivity [m2 s-1]; temmin: the massless fill's
+    temperature floor, a number or one per layer (kk, jdm, idm)
+    (`phys/temmin.py` settemmin), TMIN when None."""
     kk = grid.kk
     H = grid.shape
     ip = grid.ip
@@ -475,25 +477,30 @@ def diapfl(grid: Grid, e: eos.EosParams, s: State, difdia, m: int,
              for nt in range(ntr)]
 
     # ---- massless fill (:604-649); a column without interior layers
-    # fills them from layer 2, not colder than TMIN
+    # fills them from layer 2, not colder than each layer's temmin
     no_int = kfpl > kmax
     fill_a = (kidx >= 2) & no_int[None] & ipb[None]
     fill_b = (kidx >= 2) & (kidx < kfpl) & (~no_int[None]) & ipb[None]
     fill_c = (kidx > kmax) & (~no_int[None]) & ipb[None]
 
     def fill(a, top):
-        return torch.where(fill_a, top[None],
+        return torch.where(fill_a, top,
                            torch.where(fill_b, pick(a, kfpl)[None],
                                        torch.where(fill_c,
                                                    pick(a, kmax)[None], a)))
 
-    t_fill = fill(ttem_n, torch.clamp(ttem_n[1], min=TMIN))
+    t2 = ttem_n[1:2]
+    if isinstance(temmin, torch.Tensor):
+        top = torch.maximum(t2, temmin)
+    else:
+        top = torch.clamp(t2, min=TMIN if temmin is None else temmin)
+    t_fill = fill(ttem_n, top)
     filled = fill_a | fill_b | fill_c
     ssal_n = torch.where(filled, eos.sofsig(e, sigr, t_fill), ssal_n)
     dens_n = torch.where(filled, sigr, dens_n)
     dnew = torch.where(fill_a | fill_b, 0., dnew)
     ttem_n = t_fill
-    trc_n = [fill(a, a[1]) for a in trc_n]
+    trc_n = [fill(a, a[1:2]) for a in trc_n]
 
     # ---- momentum-mixing flux save (:654-700)
     fpl_kmin_v = torch.where(active, pick(fpl, kmin), 0.)

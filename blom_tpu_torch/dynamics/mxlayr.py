@@ -16,7 +16,9 @@ Every expression is blom_tpu's, in its order: its optimization barriers
 only pin XLA's fusion, and eager PyTorch keeps the written order.  A
 Python scalar divided by a tensor is written as a tensor division
 (`_rdiv`), since PyTorch computes ``c / x`` as ``c * (1 / x)``.  The
-near-inertial-wave source is zero (niwgf = 0, no idkedt input)."""
+near-inertial-wave source is niwgf * niwbf * idkedt, the inertial
+kinetic-energy tendency of `phys/niw.py`, when idkedt is given, and
+zero otherwise."""
 
 from __future__ import annotations
 
@@ -134,7 +136,8 @@ def _newton_step(tkew, tkeo, pmxl, dpmxl, lo, hi, span, flat_up):
 
 
 def mxlayr(grid: Grid, e: eos.EosParams, s: State, forcing: Forcing,
-           par: MxlayrParams, m: int, n: int, delt1, swabs=None, dfl=None):
+           par: MxlayrParams, m: int, n: int, delt1, swabs=None,
+           idkedt=None, dfl=None):
     """The bulk mixed layer of time level n, in place.  Returns the
     state, or (state, dfl) with the TKE budget terms in dfl.mtke when
     `dfl` is given."""
@@ -184,7 +187,8 @@ def mxlayr(grid: Grid, e: eos.EosParams, s: State, forcing: Forcing,
                                           * torch.clamp(ustar, min=ustmin))
     lei = 1.0 / (onem * swal2)
     cus = par.rm0 * ustar3
-    cni = torch.zeros(H, dtype=dtype, device=dev)
+    cni = (par.niwgf * par.niwbf * idkedt if idkedt is not None
+           else torch.zeros(H, dtype=dtype, device=dev))
     cbftot = .5 * bfltot * qag
     cbfpsw = .5 * bflpsw * qag
 

@@ -15,13 +15,14 @@ mixed-layer wind stress in momtum, then convec, the diapycnal mixing
 (diapfl) with the estimator's diffusivity, merged with the TKE/GLS
 closure's when par.itrtke is set, and the bulk mixed layer (mxlayr) in
 place of the implicit vertical diffusion.  On the ALE path the TKE/GLS
-slots are plain tracers, as in blom_tpu.  On a
+slots are plain tracers, as in blom_tpu.  Surface restoring
+(par.thermf with trxday or srxday > 0) fills the relaxation fluxes of a
+new Forcing before the vertical physics that read them (mxlayr, or
+ale_vdifft); the caller's forcing is left as it is.  On a
 tripolar grid the step ends with the fold's top-row sync (sync_state).
 On either coordinate the tracers' source terms follow the vertical physics:
 the ideal age (idlage_step) and the BGC chain (hamocc_step).  Each
-phase runs under blom_tpu's guard.  `check_supported` raises
-NotImplementedError naming the option the port does not run (surface
-restoring).
+phase runs under blom_tpu's guard.
 
 The step updates the State in place; m, n are the Python-int time-level
 slots and delt1 a Python float.  The eddy-transport limiter reads one
@@ -42,6 +43,7 @@ from ..core.state import State, cumulative_p
 from ..phys import tke
 from ..phys.forcing import Forcing
 from ..phys.swabs import SwabsFields
+from ..phys.thermf import ThermfParams, thermf_relax
 from ..phys.vmix import VmixParams, difest_vertical, difest_vertical_kpp
 from ..tracers.idlage import idlage_step
 from .advect import advect
@@ -62,13 +64,6 @@ from .ndiff import ndiff
 from .pbcor import pbcor1, pbcor2
 from .pgforc import pgforc
 from .tmsmt import tmsmt1, tmsmt2
-
-
-class ThermfParams(NamedTuple):
-    """Surface restoring e-folding times [days]; 0 turns the restoring
-    off, which makes thermf a no-op (mod_thermf.F90)."""
-    trxday: float = 0.
-    srxday: float = 0.
 
 
 class StepParams(NamedTuple):
@@ -105,14 +100,8 @@ def _diffus_on(par: StepParams) -> bool:
 
 
 def check_supported(grid: Grid, par: StepParams):
-    """Raise NotImplementedError, naming the option, for what this port
-    does not run: surface restoring.  On the isopycnic path the message
-    says so."""
-    if par.thermf is not None and (par.thermf.trxday > 0.
-                                   or par.thermf.srxday > 0.):
-        where = ' (isopycnic coordinate)' if par.vcoord_isopyc else ''
-        raise NotImplementedError(f'not ported to blom_tpu_torch{where}: '
-                                  'surface restoring (par.thermf)')
+    """The port runs every option of StepParams on both coordinates, so
+    this refuses nothing; callers check a configuration through it."""
 
 
 def _difest_v(par: StepParams):
@@ -196,7 +185,6 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     are per-step state (difest/eddtra fill them, advect and momtum read
     them).  Vertical mixing runs when par.vmix and swabs are given, the
     BGC when par.itrbgc >= 0 and bgc_forcing is given."""
-    check_supported(grid, par)
     dlt = par.dlt
     isopyc = par.vcoord_isopyc
     _mark('init_fluxes+tmsmt1')
@@ -247,7 +235,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
 
     if isopyc:
         # convective adjustment and diapycnal mixing
-        # (mod_blom_step.F90:174-186), then the bulk mixed layer (:191-193)
+        # (mod_blom_step.F90:174-186)
         _mark('convec')
         s = convec(grid, e, s, m, n)
         if par.vmix is not None and swabs is not None:
@@ -265,6 +253,17 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
                                         delt1)
             _mark('diapfl')
             s = diapfl(grid, e, s, kdiff, m, n, delt1)
+
+    # surface thermodynamics: the restoring fluxes (thermf,
+    # mod_blom_step.F90:188-189)
+    if par.thermf is not None and (par.thermf.trxday > 0.
+                                   or par.thermf.srxday > 0.):
+        _mark('thermf')
+        forcing = thermf_relax(grid, s, forcing, par.thermf, n,
+                               forcing.sstclm, forcing.sssclm)
+
+    if isopyc:
+        # the bulk mixed layer (mod_blom_step.F90:191-193)
         _mark('mxlayr')
         s, dfl = mxlayr(grid, e, s, forcing, par.mxlayr, m, n, delt1,
                         swabs=swabs, dfl=dfl)

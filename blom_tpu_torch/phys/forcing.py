@@ -1,7 +1,8 @@
 """Surface forcing fields.
 
 Counterpart of `blom_tpu/phys/forcing.py` (BLOM's mod_forcing.F90): a
-dataclass of tensors passed into the step; fuk95 uses zeros."""
+dataclass of tensors passed into the step (fuk95 uses zeros), and the
+annual freshwater balancing's accumulators."""
 
 from __future__ import annotations
 
@@ -49,3 +50,23 @@ def zero_forcing(kk: int, shape, dtype=torch.float64, device='cpu') -> Forcing:
                    salflx=z2(), brnflx=z2(), surrlx=z2(), salrlx=z2(),
                    sstclm=z2(), sssclm=z2(), mu_nonloc=mu(), mv_nonloc=mu(),
                    lamult=torch.ones(H, dtype=dtype, device=device))
+
+
+def fwbbal_accumulate(eiacc, pracc, eva, fmltfz, lip, sop, rnf, rfi,
+                      baclin: float):
+    """Accumulate evaporation + ice melt against precipitation + runoff
+    for the annual freshwater balancing (fwbbal, mod_forcing.F90:361-441,
+    the accumulation part)."""
+    eiacc = eiacc + (eva + fmltfz) * baclin
+    pracc = pracc + (lip + sop + rnf + rfi) * baclin
+    return eiacc, pracc
+
+
+def fwbbal_update(prfac, eiacc, pracc, scp2, wocn_mask):
+    """Year-end update of the precipitation/runoff correction factor,
+    prfac = -prfac * total(E + I) / total(P + R) (fwbbal,
+    mod_forcing.F90:382-410); returns (prfac, zeroed accumulators)."""
+    totei = torch.sum(eiacc * scp2 * wocn_mask)
+    totpr = torch.sum(pracc * scp2 * wocn_mask)
+    new = -prfac * totei / torch.where(torch.abs(totpr) > 0., totpr, 1.)
+    return new, torch.zeros_like(eiacc), torch.zeros_like(pracc)

@@ -165,12 +165,35 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    option's phase under torch.profiler (its device launches and busy
    share); transport_parity: one f64 step of each time-level parity
    under each option at 24x8x8, card against CPU;
-11. the kernels summary line (with the tracer counts each kernel met and
+11. surface: fuk95 with bench.py's physics at 384x360x53 in f32 under
+   surface restoring (SURFACE_VARIANTS: ThermfParams(trxday=30.,
+   srxday=30.) on the ALE coordinate, the same with the
+   chlorophyll_ohl03 shortwave from updswa of a seeded log10-chl
+   climatology under 200 W m-2 of shortwave heating, and the isopycnic
+   coordinate), towards an SSS
+   climatology read by rdcsss from a seeded .npz with a block of missing
+   values and an SST one interpolated from 48 seeded slices by
+   clim_indices/intp1d, both within 3 C and 1 g/kg of the top layer, 4
+   timed steps after 2 (isopycnic 2 after 1): the slice's gates (the
+   isopycnic ones there), the restoring fluxes of the last step nonzero
+   over water, zero on land and within their clamp bounds (reached),
+   launches per step (ALE: CPPM 2, momentum 1, K1 1, K2 1; isopycnic:
+   CPPM 2, momentum 1), s/step, the 'thermf' phase's device time and the
+   peak device memory; on the isopycnic path also diapfl with settemmin's
+   per-layer floor on the final state; surface_parity: one f64 step of
+   each time-level parity under each variant at 24x8x10, card against
+   CPU; ben02: the ben02 chain (asflux, thermf_ben02 growing and melting
+   ice, sfcstr_ben02) on seeded fields and niw_ke_tendency on the
+   restoring path's final state at 360x384 in f64 on the card against
+   the CPU within BEN02_REL, then the chain in f32 on the card: finite,
+   0 <= ficem <= fice_max, hicem >= 0;
+12. the kernels summary line (with the tracer counts each kernel met and
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
    carbon-isotope path, the decks, the tripolar grid, the vertical
-   physics, the high-order ALE methods, the transport options).
+   physics, the high-order ALE methods, the transport options, the
+   surface physics).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -2323,20 +2346,24 @@ def build_highorder(dev, dtype, variant, **size):
     return model
 
 
-def run_variants(dev, paths, phase, variants, build, nsteps, record):
+def run_variants(dev, paths, phase, variants, build, nsteps, record,
+                 gates=slice_gates):
     """Each variant of `variants` (build(dev, dtype, name, **size) builds
     it) at the main path's width in f32: nsteps = (warm-up, timed) steps,
-    the slice's gates, launches per step (expected_launches), s/step,
+    or {variant: (warm-up, timed)}, gates(model, s, nsteps, mass0) (the
+    slice's), launches per step (expected_launches), s/step,
     grid-points/s, the device time of each phase and the peak device
     memory allocated from the build on (base_mem_bytes: what was
     allocated before it), emitted as `phase`, with record(name, model,
-    phase_ms)'s keys.  The timed steps start again from the initial
-    state; their launch counts go to paths[f'fuk95_{name}']."""
+    phase_ms, s)'s keys (a key ending in '_ok' gates too).  The timed
+    steps start again from the initial state; their launch counts go to
+    paths[f'fuk95_{name}']."""
     import torch
     from blom_tpu_torch.drivers import standalone
-    warm, nsteps = nsteps
     ok_all = True
     for name in variants:
+        warm, nsteps_v = (nsteps[name] if isinstance(nsteps, dict)
+                          else nsteps)
         torch.cuda.reset_peak_memory_stats(dev)
         base_mem = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
@@ -2348,24 +2375,26 @@ def run_variants(dev, paths, phase, variants, build, nsteps, record):
         torch.cuda.synchronize()
         zero_counters()
         t0 = time.perf_counter()
-        s, _ = standalone.run(model, nsteps)
+        s, _ = standalone.run(model, nsteps_v)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = counters()
         syncs_n = counts.pop('host_syncs')
         paths[f'fuk95_{name}'] = counts
-        ok, rec = slice_gates(model, s, nsteps, mass0)
-        ok &= launches_ok(counts, model.par, nsteps)
+        ok, rec = gates(model, s, nsteps_v, mass0)
+        ok &= launches_ok(counts, model.par, nsteps_v)
         step_ms, phase_ms = profile_phases(model, 2,
                                            f'{phase}_{name}_phase_profile')
+        extra = record(name, model, phase_ms, s)
+        ok &= all(v for k, v in extra.items() if k.endswith('_ok'))
         emit(phase, variant=name, shape=[KK, JJ, II], dtype='float32',
-             build_seconds=build_s, warmup_steps=warm, steps=nsteps, ok=ok,
-             **rec, launches=counts,
+             build_seconds=build_s, warmup_steps=warm, steps=nsteps_v,
+             ok=ok, **rec, launches=counts,
              launches_per_step_expected=expected_launches(model.par),
-             host_syncs_per_step=syncs_n / nsteps,
-             seconds_per_step=wall / nsteps,
-             gridpoints_per_s=II * JJ * KK * nsteps / wall,
-             step_ms=step_ms, **record(name, model, phase_ms),
+             host_syncs_per_step=syncs_n / nsteps_v,
+             seconds_per_step=wall / nsteps_v,
+             gridpoints_per_s=II * JJ * KK * nsteps_v / wall,
+             step_ms=step_ms, **extra,
              peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
              base_mem_bytes=base_mem)
         ok_all &= ok
@@ -2395,7 +2424,7 @@ def run_highorder(dev, paths):
     'ale_regrid_remap' phase reported apart), then the direct regrid at
     SALN_REF_SIZE, as blom_tpu's reading SALN_REF was taken
     (run_highorder_drift)."""
-    def record(name, model, phase_ms):
+    def record(name, model, phase_ms, s):
         return dict(ale=model.par.ale._asdict(),
                     saln_tol=(SALN_DEV_DIRECT if name == 'direct'
                               else SALN_DEV_ALE),
@@ -2496,7 +2525,7 @@ def run_transport(dev, paths):
     (launches per step: remap CPPM 0, neutral CPPM 2; momentum, K1 and K2
     1 each), the 'advect' and 'ndiff' phases reported apart; then one
     call of the option's phase traced (phase_trace)."""
-    def record(name, model, phase_ms):
+    def record(name, model, phase_ms, s):
         return dict(change=TRANSPORT_VARIANTS[name], saln_tol=SALN_DEV_ALE,
                     advect_ms=phase_ms.get('advect'),
                     ndiff_ms=phase_ms.get('ndiff'),
@@ -2511,6 +2540,345 @@ def run_transport_parity(dev):
     at PARITY_TRANSPORT, card against CPU, within STEP_REL."""
     return run_variants_parity(dev, 'transport_parity', TRANSPORT_VARIANTS,
                                build_transport, PARITY_TRANSPORT)
+
+
+# ---------------------------------------------------------------- surface
+
+NSTEPS_SURFACE = {'restoring': (2, 4), 'restoring_chl': (2, 4),
+                  'restoring_isopyc': (1, 2)}    # warm-up, timed steps
+PARITY_SURFACE = dict(itdm=24, jtdm=8, kdm=10)
+# surface restoring (ThermfParams' other fields at their defaults), with
+# the chlorophyll shortwave, and on the isopycnic coordinate
+RESTORING = dict(trxday=30., srxday=30.)
+SURFACE_VARIANTS = {'restoring': dict(), 'restoring_chl':
+                    dict(swamth='chlorophyll_ohl03'),
+                    'restoring_isopyc': dict(vcoord=ISOPYC)}
+# the chlorophyll variant's shortwave heating [W m-2, positive up], so
+# that its absorption profile acts (fuk95's forcing has none)
+SSWFLX_CHL = -200.
+# the climatologies' differences from the top layer: beyond trxlim
+# (1.5 C) and srxlim (0.5 g/kg), so that the clamps bite
+SST_SPREAD, SSS_SPREAD = 3., 1.
+BEN02_REL = 1e-10
+_THERMF = []     # the Forcing of the last thermf_relax call (observe_thermf)
+
+
+def observe_thermf():
+    """Wrap the step's thermf_relax so that _THERMF holds the Forcing of
+    its last call; returns the original, to put back."""
+    from blom_tpu_torch.dynamics import step
+    orig = step.thermf_relax
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        _THERMF[:] = [out]
+        return out
+    step.thermf_relax = wrapped
+    return orig
+
+
+def surface_climatologies(model, seed=SEED):
+    """(sstclm, sssclm) on the model's device and dtype at its clock: the
+    SSS from 12 seeded months written to an .npz under build/ with a
+    block of missing values, read back by rdcsss (its fill over the
+    mask) and interpolated by intp1d at month_interp(); the SST from 48
+    seeded slices by clim_indices and intp1d at the day of the year.
+    Each slice is the initial top layer plus one seeded anomaly within
+    SST_SPREAD (SSS_SPREAD) and a smaller slice-to-slice noise."""
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from blom_tpu_torch.phys.intp1d import clim_indices, intp1d
+    from blom_tpu_torch.phys.rdcsss import rdcsss
+    g, clock = model.grid, model.clock
+    dev, dtype = g.ip.device, g.ip.dtype
+    rng = np.random.default_rng(seed)
+    H = tuple(g.shape)
+    t0 = model.state.temp[1, 0].double().cpu().numpy()
+    s0 = model.state.saln[1, 0].double().cpu().numpy()
+    sst = (t0 + rng.uniform(-SST_SPREAD, SST_SPREAD, H)
+           + rng.uniform(-.1, .1, (48,) + H))
+    sss = (s0 + rng.uniform(-SSS_SPREAD, SSS_SPREAD, H)
+           + rng.uniform(-.05, .05, (12,) + H))
+    j0, i0 = H[0] // 3, H[1] // 3
+    sss[:, j0:j0 + H[0] // 8, i0:i0 + H[1] // 8] = -9.99e33
+    path = Path(__file__).resolve().parent / 'build' / 'surface'
+    path.mkdir(parents=True, exist_ok=True)
+    path = path / f'sss_{H[1]}x{H[0]}.npz'
+    np.savez(path, sss=sss)
+    sssc = rdcsss(str(path), mask=g.ip.cpu(), dtype=dtype, device=dev)
+    xmi, *months = clock.month_interp()
+    sssclm = intp1d(*(sssc[mo - 1] for mo in months), xmi)
+    frac = (clock.nstep % clock.nstep_in_day) / clock.nstep_in_day
+    *slices, x = clim_indices(clock.nday_of_year, frac, 48,
+                              clock.nday_in_year)
+    sstc = torch.as_tensor(sst, dtype=dtype, device=dev)
+    return intp1d(*(sstc[k] for k in slices), x), sssclm
+
+
+def build_surface(dev, dtype, variant, **size):
+    """fuk95 with bench.py's physics restoring towards
+    surface_climatologies(); 'restoring_chl' with the chlorophyll_ohl03
+    absorption from updswa of a seeded 12-month log10-chl climatology
+    and SSWFLX_CHL of shortwave heating over water, 'restoring_isopyc' on
+    the isopycnic coordinate."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    from blom_tpu_torch.phys.swabs import updswa
+    from blom_tpu_torch.phys.thermf import ThermfParams
+    kw = dict(SURFACE_VARIANTS[variant])
+    swamth = kw.pop('swamth', None)
+    model = standalone.build_fuk95(dtype=dtype, device=dev, **kw, **size)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST),
+                                   thermf=ThermfParams(**RESTORING))
+    sstclm, sssclm = surface_climatologies(model)
+    model.forcing = dataclasses.replace(model.forcing, sstclm=sstclm,
+                                        sssclm=sssclm)
+    if swamth is not None:
+        rng = np.random.default_rng(SEED + 1)
+        chl10c = torch.as_tensor(
+            rng.uniform(-2., 1., (12,) + tuple(model.grid.shape)),
+            dtype=dtype, device=dev)
+        model.swabs = updswa(swamth, chl10c, model.clock.month_interp())
+        sw = SSWFLX_CHL * model.grid.ip
+        model.forcing = dataclasses.replace(model.forcing, surflx=sw,
+                                            sswflx=sw.clone())
+    return model
+
+
+def restoring_gates(model, forcing):
+    """The restoring fluxes of the last step (`forcing`, thermf_relax's):
+    over water nonzero (all but one point in 10^4: an f32 difference can
+    round to zero) and within their clamp bounds
+    (spcifh*trxdpt*onem/grav*trxlim/(trxday*86400) and the salt analogue,
+    plus f32 rounding), the bound reached where the clamp bites; zero on
+    land."""
+    from blom_tpu_torch.core.constants import grav, onem, spcifh
+    par = model.par.thermf
+    wet = model.grid.ip > 0
+    rec, ok = {}, True
+    for name, day, dpt, lim, c in (
+            ('surrlx', par.trxday, par.trxdpt, par.trxlim, spcifh),
+            ('salrlx', par.srxday, par.srxdpt, par.srxlim, 1.)):
+        f = getattr(forcing, name).double()
+        bound = c * dpt * onem / grav * lim / (day * 86400.)
+        top = float(f[wet].abs().max())
+        nonzero = float((f[wet] != 0.).double().mean())
+        land = float(f[~wet].abs().max()) if bool((~wet).any()) else 0.
+        good = (nonzero >= 1. - 1e-4 and land == 0.
+                and bound * (1. - 1e-5) <= top <= bound * (1. + 1e-5))
+        rec[name] = dict(max_abs=top, bound=bound, nonzero_share=nonzero,
+                         land_max_abs=land, ok=good)
+        ok &= good
+    return ok, rec
+
+
+def surface_gates(model, s, nsteps, mass0):
+    """The slice's gates (the isopycnic ones on that coordinate) and
+    restoring_gates on the fluxes of the run's last step."""
+    ok, rec = (isopyc_gates if model.par.vcoord_isopyc else slice_gates)(
+        model, s, nsteps, mass0)
+    rok, rrec = restoring_gates(model, _THERMF[0])
+    return ok and rok, dict(rec, restoring=rrec)
+
+
+def temmin_check(model, s, nsteps):
+    """diapfl on the newest level of the isopycnic path's final state,
+    with settemmin's per-layer floor and with the -3 C default: finite,
+    the floor not lowering any temperature; the cells it lifts counted."""
+    import torch
+    from blom_tpu_torch.dynamics.diapfl import diapfl
+    from blom_tpu_torch.phys.temmin import settemmin
+    g = model.grid
+    n = 1 if nsteps % 2 == 0 else 0
+    kdiff = torch.full_like(s.dp[n], 1e-5)
+    tmn = settemmin(model.e, s.sigmar, True)
+    out = {k: diapfl(g, model.e, s.clone(), kdiff, 1 - n, n,
+                     model.clock.delt1, temmin=t).temp[n]
+           for k, t in (('field', tmn), ('none', None))}
+    lift = out['field'].double() - out['none'].double()
+    ok = bool(torch.isfinite(out['field']).all()) and float(lift.min()) >= 0.
+    return ok, dict(ok=ok, temmin_range=[float(tmn[1:].min()),
+                                         float(tmn[1:].max())],
+                    cells_lifted=int((lift > 0.).sum()),
+                    max_lift=float(lift.max()))
+
+
+def run_surface(dev, paths, final):
+    """Each variant of SURFACE_VARIANTS through run_variants with
+    surface_gates (launches per step: ALE CPPM 2, momentum 1, K1 1, K2
+    1; isopycnic CPPM 2, momentum 1), the 'thermf' phase reported apart,
+    and on the isopycnic path temmin_check; niw_inputs of the restoring
+    variant's final state go to final['restoring'] (for run_ben02)."""
+    from blom_tpu_torch.dynamics import step
+
+    def record(name, model, phase_ms, s):
+        rec = dict(thermf=model.par.thermf._asdict(),
+                   swamth=SURFACE_VARIANTS[name].get('swamth', 'jerlov'),
+                   thermf_ms=phase_ms.get('thermf'),
+                   mxlayr_ms=phase_ms.get('mxlayr'))
+        if name == 'restoring':
+            final['restoring'] = niw_inputs(model, s)
+        if model.par.vcoord_isopyc:
+            rec['temmin_ok'], rec['temmin'] = temmin_check(
+                model, s, NSTEPS_SURFACE[name][1])
+        return rec
+    orig = observe_thermf()
+    try:
+        ok = run_variants(dev, paths, 'surface', SURFACE_VARIANTS,
+                          build_surface, NSTEPS_SURFACE, record,
+                          gates=surface_gates)
+    finally:
+        step.thermf_relax = orig
+    return ok
+
+
+def run_surface_parity(dev):
+    """One f64 step of each time-level parity under each variant of
+    SURFACE_VARIANTS at PARITY_SURFACE, card against CPU, within
+    STEP_REL."""
+    return run_variants_parity(dev, 'surface_parity', SURFACE_VARIANTS,
+                               build_surface, PARITY_SURFACE)
+
+
+def surface_grid(dev, dtype):
+    """fuk95's grid at the main path's (J, I) (4 layers: only the surface
+    counts) and its eos."""
+    from blom_tpu_torch.configs import fuk95
+    from blom_tpu_torch.core import eos
+    return (fuk95.make_grid(180., II, JJ, 4, dtype=dtype, device=dev),
+            eos.init_eos(pref=0., expcnf='fuk95'))
+
+
+def ben02_inputs(dev, dtype, seed=SEED):
+    """The ben02 chain's inputs at the main path's (J, I), from a seed:
+    surface_grid(), a seeded atmosphere, the cold case's open water just
+    above freezing and the warm case's ice cover, as
+    tests/test_ben02.py:83-138 sets them up."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from blom_tpu_torch.core.eos import tfrz
+    from blom_tpu_torch.phys import ben02, seaice
+    from blom_tpu_torch.phys.swabs import init_swabs
+    grid, e = surface_grid(dev, dtype)
+    H = tuple(grid.shape)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def clim(**kw):
+        c = ben02.neutral_clim(H, dtype, device=dev, **kw)
+        return c._replace(
+            tsrf_d=c.tsrf_d + t(rng.uniform(-3., 3., H)),
+            shtfl=t(rng.uniform(-40., 40., H)),
+            lhtfl=t(rng.uniform(-80., 20., H)),
+            tau_d=t(rng.uniform(0., .3, H)), uwnd=t(rng.uniform(-1., 1., H)),
+            vwnd=t(rng.uniform(-1., 1., H)),
+            rnfins=t(rng.uniform(0., 1e-5, H)))
+    ice0 = seaice.init_seaice(H, dtype, device=dev)
+    sotl = t(35. + rng.uniform(-1., 1., H))
+    cases = {
+        'cold': (clim(dswrf=0., tsrf=248.), ice0,
+                 tfrz(e, sotl) + .001, t(np.full(H, 5. * 9806.))),
+        'warm': (clim(dswrf=300., tsrf=295.), dataclasses.replace(
+            ice0, ficem=t(rng.uniform(.3, .7, H)),
+            hicem=t(rng.uniform(.1, .4, H)),
+            hsnwm=t(rng.uniform(0., .05, H)), tsrfm=t(np.full(H, 270.)),
+            ticem=t(np.full(H, 270.))),
+            t(6. + rng.uniform(-1., 1., H)), t(np.full(H, 20. * 9806.)))}
+    sw = init_swabs(H, 'jerlov', 3, dtype, dev)
+    return grid, e, sotl, cases, sw
+
+
+def ben02_chain(dev, dtype):
+    """asflux, thermf_ben02 and sfcstr_ben02 of both ben02_inputs cases:
+    {name: tensor}."""
+    import torch
+    from blom_tpu_torch.phys import ben02
+    g, e, sotl, cases, sw = ben02_inputs(dev, dtype)
+    H = tuple(g.shape)
+    out = {}
+    for case, (clim, ice, totl, dp1) in cases.items():
+        b = ben02.asflux(e, ben02.init_ben02(H, dtype, device=dev),
+                         clim, ice, totl + 273.15, sotl)
+        for k in ('nsf', 'dfl', 'eva', 'taufac', 'cd_m', 'ch_m'):
+            out[f'{case}.asflux.{k}'] = getattr(b, k)
+        new, flx = ben02.thermf_ben02(g, e, b, clim, ice, dp1, totl,
+                                      sotl, torch.zeros_like(sotl),
+                                      sw.swfc2, sw.swal2, 1800.)
+        for k in ('ficem', 'hicem', 'hsnwm', 'tsrfm', 'ticem'):
+            out[f'{case}.ice.{k}'] = getattr(new, k)
+        for k, v in flx.items():
+            out[f'{case}.flx.{k}'] = v
+        taux, tauy = ben02.sfcstr_ben02(g, b, clim, new)
+        out[f'{case}.sfcstr.taux'], out[f'{case}.sfcstr.tauy'] = taux, tauy
+    return out
+
+
+NIW_FIELDS = ('u', 'v', 'dpu', 'dpv', 'ubflxs_p', 'vbflxs_p', 'pbu', 'pbv')
+
+
+def niw_inputs(model, s):
+    """What niw_ke_tendency reads of state `s` (the two mixed-layer
+    layers of u, v, dpu, dpv; the barotropic fluxes and pressures), in
+    f64 on the host, with the step's delt1 and dlt."""
+    return dict(
+        {k: (getattr(s, k)[:, :2] if k in ('u', 'v', 'dpu', 'dpv')
+             else getattr(s, k)).double().cpu() for k in NIW_FIELDS},
+        delt1=model.clock.delt1, dlt=model.par.dlt)
+
+
+def niw_fields(final, dev):
+    """niw_ke_tendency, twice (m = 0, then 1), on niw_inputs `final` in
+    f64 on `dev` with surface_grid(): {name: tensor}."""
+    import types
+    import torch
+    from blom_tpu_torch.phys.niw import init_niw, niw_ke_tendency
+    g, _ = surface_grid(dev, torch.float64)
+    st = types.SimpleNamespace(**{k: final[k].to(dev) for k in NIW_FIELDS})
+    niw = init_niw(g.shape, torch.float64, device=dev)
+    out = {}
+    for m in range(2):
+        niw = niw_ke_tendency(g, st, niw, m, final['delt1'], final['dlt'])
+        out[f'niw{m}.idkedt'] = niw.idkedt
+        out[f'niw{m}.umlres'] = niw.umlres
+    return out
+
+
+def run_ben02(dev, final):
+    """The ben02 chain and niw_ke_tendency (on niw_inputs `final`) at
+    360x384 in f64 on the card against the CPU (worst max |card - cpu| /
+    max |cpu| within BEN02_REL), then the chain in f32 on the card:
+    finite, 0 <= ficem <= fice_max, hicem >= 0."""
+    import torch
+    from blom_tpu_torch.phys.seaice import fice_max
+    t0 = time.perf_counter()
+    card = dict(ben02_chain(dev, torch.float64), **niw_fields(final, dev))
+    cpu = dict(ben02_chain('cpu', torch.float64),
+               **niw_fields(final, 'cpu'))
+    errs = {k: float((card[k].cpu() - v).abs().max()
+                     / v.abs().max().clamp_min(1e-300))
+            for k, v in cpu.items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    ok = worst[1] <= BEN02_REL
+    f32 = ben02_chain(dev, torch.float32)
+    finite = all(bool(torch.isfinite(v).all()) for v in f32.values())
+    fice = [f32[f'{c}.ice.ficem'] for c in ('cold', 'warm')]
+    hice = [f32[f'{c}.ice.hicem'] for c in ('cold', 'warm')]
+    bounds = (all(float(f.min()) >= 0. and float(f.max()) <= fice_max
+                  for f in fice) and all(float(h.min()) >= 0. for h in hice))
+    grew = float(f32['cold.ice.ficem'].max())
+    ok &= finite and bounds and grew > 0.
+    emit('ben02', ok=ok, shape=[JJ, II], tolerance=BEN02_REL,
+         f64_worst=worst, fields=len(errs), f32_finite=finite,
+         f32_ice_bounds=bounds, f32_cold_max_ficem=grew,
+         seconds=time.perf_counter() - t0)
+    return ok
 
 
 # ------------------------------------------------------------------ decks
@@ -2780,6 +3148,10 @@ def main():
     ok &= run_highorder_parity(dev)
     ok &= run_transport(dev, paths)
     ok &= run_transport_parity(dev)
+    final = {}
+    ok &= run_surface(dev, paths, final)
+    ok &= run_surface_parity(dev)
+    ok &= run_ben02(dev, final['restoring'])
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)

@@ -618,17 +618,32 @@ def test_step_matches_blom_tpu(models, egc):
     assert int(ts.kfpla[0][wet].max()) <= g.kk
 
 
-@pytest.mark.parametrize('change', [
-    dict(thermf=tstep.ThermfParams(srxday=30.))])
+@pytest.mark.parametrize('change', [dict(srxday=30.)])
 def test_isopyc_refusals_name_the_path(models, change):
-    """What the port does not run, the isopycnic path refuses too, and
-    its message says so."""
-    _, tm = models
-    par = tm.par._replace(**change)
-    with pytest.raises(NotImplementedError, match='isopycnic coordinate'):
-        tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
-                        tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.,
-                        tm.swabs)
+    """Surface restoring, which the isopycnic path once refused: on the
+    isopycnic initial state, the salt restoring flux of thermf_relax
+    towards a seeded climatology (test_torch_thermf.py's, the srxlim
+    clamp biting) within TOL of blom_tpu's, then mxlayr reading it
+    within MXLAYR_TOL; check_supported takes the option."""
+    from blom_tpu.phys import thermf as jthermf
+    from blom_tpu_torch.phys import thermf as tthermf
+    from tests.test_torch_thermf import with_restoring
+    jm, tm = with_restoring(*models, **change)
+    tstep.check_supported(tm.grid, tm.par)
+    m, n, d1 = 0, 1, jm.clock.delt1
+    jf = jthermf.thermf_relax(jm.grid, jm.state, jm.forcing, jm.par.thermf,
+                              n, jm.forcing.sstclm, jm.forcing.sssclm)
+    ref = jmx.mxlayr(jm.grid, jm.e, jm.state, jf, jm.par.mxlayr, m, n, d1,
+                     swabs=jm.swabs, dfl=jm.dfl)
+    ts = _port_state(jm.state)
+    tf = tthermf.thermf_relax(tm.grid, ts, tm.forcing, tm.par.thermf, n,
+                              tm.forcing.sstclm, tm.forcing.sssclm)
+    out = tmx.mxlayr(tm.grid, tm.e, ts, tf, tm.par.mxlayr, m, n, d1,
+                     swabs=tm.swabs, dfl=tm.dfl)
+    assert float(tf.salrlx.abs().max()) > 0. and not tf.surrlx.any()
+    _assert_close(jf, tf)
+    for r, o in zip(ref, out):
+        _assert_close(r, o, MXLAYR_TOL['cooling'])
 
 
 def test_isopyc_remap_matches_blom_tpu(models):

@@ -95,7 +95,7 @@ def case(tmp_path_factory):
 
 def test_swabs_jerlov(case):
     _same(case['tswabs'], case['swabs'])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='chl10c'):
         tsw.init_swabs((2, 3), 'chlorophyll_ma94')
 
 

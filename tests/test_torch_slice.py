@@ -298,14 +298,38 @@ def test_entry_point_needs_cuda_or_device(monkeypatch):
         tst.build_fuk95(**SIZE)
 
 
-@pytest.mark.parametrize('change', [
-    dict(thermf=tstep.ThermfParams(trxday=30.))], ids=['change2'])
-def test_unported_phases_raise(models, change):
-    _, tm = models
-    par = tm.par._replace(**change)
-    with pytest.raises(NotImplementedError):
-        tstep.blom_step(tm.grid, tm.e, par, tm.coeffs_i, tm.coeffs_j,
-                        tm.state.clone(), tm.forcing, tm.dfl, 0, 1, 180.)
+@pytest.mark.parametrize('change', [dict(trxday=30.)], ids=['change2'])
+def test_unported_phases_raise(full_models, full_snapshots, change):
+    """Surface restoring, which the port once refused here: for both
+    parities, on blom_tpu's inputs of the full step's vertical physics,
+    the restoring fluxes of thermf_relax towards seeded climatologies
+    (test_torch_thermf.py's, the trxlim clamp biting), then
+    difest_vertical and ale_vdifft reading them, each within 1e-12 of
+    blom_tpu's; check_supported takes the option."""
+    from blom_tpu.phys import thermf as jthermf
+    from blom_tpu_torch.phys import thermf as tthermf
+    from tests.test_torch_thermf import with_restoring
+    jm, tm = with_restoring(*full_models, **change)
+    tstep.check_supported(tm.grid, tm.par)
+    for step in (0, 1):
+        m, n, d1, (before, dfl, _), _ = full_snapshots[
+            (step, 'difest_vertical')]
+        jf = jthermf.thermf_relax(jm.grid, before, jm.forcing, jm.par.thermf,
+                                  n, jm.forcing.sstclm, jm.forcing.sssclm)
+        vf = jvm.difest_vertical(jm.grid, jm.e, before, jf, jm.swabs,
+                                 jm.par.vmix, n)
+        after = jvd.ale_vdifft(jm.grid, jm.e, before, jf, vf, m, n, d1)
+        s = convert.state_from_numpy(_np_fields(before))
+        tf = tthermf.thermf_relax(tm.grid, s, tm.forcing, tm.par.thermf, n,
+                                  tm.forcing.sstclm, tm.forcing.sssclm)
+        tvf = tvm.difest_vertical(tm.grid, tm.e, s, tf, tm.swabs,
+                                  tm.par.vmix, n)
+        out = tvd.ale_vdifft(tm.grid, tm.e, s, tf, tvf, m, n, d1)
+        assert float(tf.surrlx.abs().max()) > 0.
+        for ref, port in ((jf, tf), (vf, tvf), (after, out)):
+            errs = _rel_errors_any(ref, port)
+            bad = {k: v for k, v in errs.items() if v > 1e-12}
+            assert not bad, (step, bad)
 
 
 @pytest.mark.parametrize('option', ['remap', 'neutral'])
