@@ -3,9 +3,8 @@
 The port's own copy of `blom_tpu/core/config.py`: one config tree in
 place of BLOM's namelist groups (mod_rdlim.F90), run strings
 (mod_config.F90) and compile-time flags, loadable from an unmodified
-BLOM `limits` deck.  A deck with a &DIAPHY group raises
-NotImplementedError: the diagnostic output it configures is not
-ported."""
+BLOM `limits` deck; a &DIAPHY group becomes `dia_groups`
+(`io.dia.load_diaphy`)."""
 
 from __future__ import annotations
 
@@ -178,7 +177,7 @@ class RunConfig:
         default_factory=DiffusionConfig)
 
     # diagnostic output groups of &DIAPHY (GLB_* arrays,
-    # mod_dia.F90:278-344); the port reads no &DIAPHY yet
+    # mod_dia.F90:278-344), io.dia.DiaGroupCfg
     dia_groups: tuple = ()
 
     # numerics of the implementation (no reference equivalent)
@@ -222,7 +221,6 @@ def load_limits(path: str) -> RunConfig:
                 _aslist(g.get('cwmi', [])), _aslist(g.get('cwmj', [])),
                 _aslist(g.get('cwmwth', []))))
     if 'DIAPHY' in groups:
-        raise NotImplementedError(
-            'the &DIAPHY group (diagnostic output, io/dia.py) is not ported '
-            'to blom_tpu_torch')
+        from ..io.dia import load_diaphy
+        cfg.dia_groups = tuple(load_diaphy(groups))
     return cfg

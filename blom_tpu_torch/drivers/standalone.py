@@ -24,7 +24,7 @@ from ..dynamics.ale import make_ale_params
 from ..dynamics.barotp import BarotpParams
 from ..dynamics.diffusion_fields import DiffusionFields, zero_diffusion_fields
 from ..dynamics.momtum import MomtumParams
-from ..dynamics.step import StepParams, blom_step, two_step
+from ..dynamics.step import StepParams, blom_step
 from ..phys.forcing import Forcing, zero_forcing
 from ..phys.swabs import SwabsFields, init_swabs
 
@@ -239,14 +239,54 @@ def build_tripolar(dtype=torch.float64, itdm=32, jtdm=24, kdm=6,
     return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 
 
-def run(model: Model, nsteps: int):
+def _accumulate(model, group, s, n, dfl, bgc_diags):
+    """Accumulate time level n into one group or a tuple/list of groups
+    (dia groups and bgcmean groups), as blom_tpu's scan body does."""
+    from ..bgc.bgcmean import BgcmGroup, acc_bgcm
+    from ..io import dia
+
+    def one(g):
+        if isinstance(g, BgcmGroup):
+            return acc_bgcm(g, model.grid, s, n, model.par.itrbgc,
+                            bgc_diags or {}, ti=model.par.bgc_ti)
+        return dia.accumulate(
+            model.grid, g, s, n, model.forcing, dfl, swabs=model.swabs,
+            tridx={'itriag': model.par.itriag, 'itrtke': model.par.itrtke,
+                   'itrgls': model.par.itrgls})
+
+    if isinstance(group, (tuple, list)):
+        return type(group)(one(g) for g in group)
+    return one(group)
+
+
+def run(model: Model, nsteps: int, dia_group=None, cnsvdi: bool = False,
+        chk: bool = False):
     """Integrate `nsteps` baroclinic steps from the model's clock and
     state.  The first steps from initial conditions are forward
     (delt1 = baclin), later ones leap-frog (delt1 = 2*baclin).
 
-    Steps go in pairs of both parities; an odd count ends with one step
-    at the pair's first parity.  `model.state` is left unchanged.
-    Returns (state, clock)."""
+    Steps alternate the time-level parity, (m, n) = (0, 1) first, as
+    blom_tpu's pairs of steps and its odd tail do.  `model.state` is
+    left unchanged; `model.dfl` takes the last step's diffusion fields.
+
+    In-step instrumentation (BLOM's diaacc, budget_sums and chkvar,
+    mod_blom_step.F90:96-252), all kept on the device until the run
+    returns: `dia_group` (a DiaGroup or BgcmGroup, or a tuple or list of
+    them) is accumulated after every step at its new time level;
+    `cnsvdi` collects the budget sums of every step's seven checkpoints;
+    `chk` a per-step chkvar flag.  Returns (state, clock), and with any
+    of them on also an extras dict: 'dia_group' (the accumulated group
+    or groups), 'budgets' (a BudgetSums of (nsteps, ncheck) tensors),
+    'ok' (a (nsteps,) bool tensor)."""
+    from ..bgc.bgcmean import BgcmGroup
+    from ..dynamics.budget import BudgetSums
+    from ..dynamics.chkvar import chkvar
+
+    with_dia = dia_group is not None
+    groups = (dia_group if isinstance(dia_group, (tuple, list))
+              else [dia_group] if with_dia else [])
+    with_bgcm = any(isinstance(g, BgcmGroup) for g in groups)
+
     s = model.state.clone()
     dfl = model.dfl
     delt1s = []
@@ -255,13 +295,32 @@ def run(model: Model, nsteps: int):
         delt1s.append(c.delt1)
         c = c.step()
     args = (model.grid, model.e, model.par, model.coeffs_i, model.coeffs_j)
-    n_even = (nsteps // 2) * 2
-    for i in range(0, n_even, 2):
-        s, dfl = two_step(*args, s, model.forcing, dfl,
-                          delt1s[i], delt1s[i + 1], model.swabs,
-                          model.bgc_forcing)
-    if nsteps % 2:
-        s, dfl = blom_step(*args, s, model.forcing, dfl, 0, 1, delt1s[-1],
-                           model.swabs, model.bgc_forcing)
+    budgets, oks = [], []
+    for i, d in enumerate(delt1s):
+        m, n = (0, 1) if i % 2 == 0 else (1, 0)
+        bout = [] if cnsvdi else None
+        bgcd = [] if with_bgcm else None
+        s, dfl = blom_step(*args, s, model.forcing, dfl, m, n, d,
+                           model.swabs, model.bgc_forcing,
+                           budget_out=bout, bgc_diag_out=bgcd)
+        if cnsvdi:
+            budgets.append(bout)
+        if chk:
+            oks.append(chkvar(model.grid, s, n)[0])
+        if with_dia:
+            dia_group = _accumulate(model, dia_group, s, n, dfl,
+                                    bgcd[0] if bgcd else {})
     model.dfl = dfl
-    return s, c
+    if not (with_dia or cnsvdi or chk):
+        return s, c
+    extras = {}
+    if with_dia:
+        extras['dia_group'] = dia_group
+    if cnsvdi:
+        extras['budgets'] = BudgetSums(*(
+            torch.stack([torch.stack([getattr(b, k) for b in step])
+                         for step in budgets])
+            for k in BudgetSums._fields))
+    if chk:
+        extras['ok'] = torch.stack(oks)
+    return s, c, extras

@@ -105,9 +105,11 @@ def _dpmx(grid: Grid, dp_m):
     return torch.clamp(_mx(du, jm1(du), dv, im1(dv)), min=8. * onem)
 
 
-def potvor_field(grid: Grid, dp_m, utotm, vtotm, dpmx=None):
+def potvor_field(grid: Grid, dp_m, utotm, vtotm, dpmx=None,
+                 return_dpvor: bool = False):
     """Potential vorticity at q points, interior + lateral boundary
-    treatment (mod_momtum.F90:473-575)."""
+    treatment (mod_momtum.F90:473-575).  With return_dpvor, (potvor,
+    dpvor): the thickness is the LYR_DPVOR diagnostic."""
     iu, iv, iq = grid.iu, grid.iv, grid.iq
     im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
     jp1p = lambda a: grid.jp1(a, 'p')           # noqa: E731
@@ -147,6 +149,8 @@ def potvor_field(grid: Grid, dp_m, utotm, vtotm, dpmx=None):
     dpvor_b = torch.where(iu > 0, cand_un, dpvor_b)
     dpvor_b = torch.where(jm1(iu) > 0, cand_us, dpvor_b)
     dpvor = torch.where(iq > 0, dpvor_i, dpvor_b)
+    if return_dpvor:
+        return absvor / dpvor, dpvor
     return absvor / dpvor
 
 

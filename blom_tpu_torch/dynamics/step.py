@@ -50,6 +50,7 @@ from .advect import advect
 from .ale import AleParams, ale_regrid_remap
 from .ale_vdiff import ale_vdifft, ale_vdiffm
 from .barotp import BarotpParams, barotp
+from .budget import budget_col_sums, budget_sums_many
 from .cmnfld import cmnfld
 from .convec import convec
 from .cppm import CppmCoeffs
@@ -179,14 +180,32 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
               s: State, forcing: Forcing, dfl: DiffusionFields,
               m: int, n: int, delt1: float,
               swabs: Optional[SwabsFields] = None,
-              bgc_forcing: Optional[BgcForcing] = None):
+              bgc_forcing: Optional[BgcForcing] = None,
+              budget_out: Optional[list] = None,
+              bgc_diag_out: Optional[list] = None):
     """Advance one baroclinic time step (mod_blom_step.F90:74-324) in
     place.  Returns (state, dfl): the diffusion and eddy-transport fields
     are per-step state (difest/eddtra fill them, advect and momtum read
     them).  Vertical mixing runs when par.vmix and swabs are given, the
-    BGC when par.itrbgc >= 0 and bgc_forcing is given."""
+    BGC when par.itrbgc >= 0 and bgc_forcing is given.
+
+    When `budget_out` is a list, the mass, heat and salt budget sums of
+    BLOM's seven cnsvdi checkpoints (budget_sums calls 1..7,
+    mod_blom_step.F90:96-230) are appended to it, as device tensors: the
+    columns are collapsed at each checkpoint and summed together at the
+    end of the step.  When `bgc_diag_out` is a list, hamocc_step's
+    diagnostics are appended to it (accfields, mo_hamocc_step.F90:101).
+    With both None the step is unchanged."""
     dlt = par.dlt
     isopyc = par.vcoord_isopyc
+    cols = [] if budget_out is not None else None
+
+    def ckpt(lvl):
+        if cols is not None:
+            _mark('budget')
+            cols.append(budget_col_sums(grid, s, lvl))
+
+    ckpt(n)   # budget_sums(1,n) before anything (mod_blom_step.F90:96)
     _mark('init_fluxes+tmsmt1')
     s = init_fluxes(s, m)
     s = tmsmt1(grid, s, n, isopyc)
@@ -195,6 +214,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     if not isopyc and par.ale is not None:
         _mark('ale_regrid_remap')
         s = ale_regrid_remap(grid, e, par.ale, s, m, n, delt1)
+        ckpt(n)   # budget_sums(2,n) after the remap (:132)
 
     # derived fields, lateral diffusivities, GM eddy transport
     # (mod_blom_step.F90:136-147; the isopycnic GM is
@@ -226,6 +246,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         else:
             _mark('diffus')
             s, dfl = diffus(grid, e, s, dfl, m, n, delt1)
+    ckpt(n)   # budget_sums(2|3,n) after advect/diffus (:156,159)
 
     _mark('pgforc')
     s = pgforc(grid, e, s, m, n, par.pgfmth)
@@ -238,6 +259,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         # (mod_blom_step.F90:174-186)
         _mark('convec')
         s = convec(grid, e, s, m, n)
+        ckpt(n)   # budget_sums(3,n) after convec (:177)
         if par.vmix is not None and swabs is not None:
             _mark('difest_vertical')
             vf = _difest_v(par)(grid, e, s, forcing, swabs, par.vmix, n)
@@ -253,6 +275,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
                                         delt1)
             _mark('diapfl')
             s = diapfl(grid, e, s, kdiff, m, n, delt1)
+        ckpt(n)   # budget_sums(4,n) after diapfl (:183)
 
     # surface thermodynamics: the restoring fluxes (thermf,
     # mod_blom_step.F90:188-189)
@@ -280,6 +303,7 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         s = ale_vdifft(grid, e, s, forcing, vf, m, n, delt1)
         _mark('ale_vdiffm')
         s = ale_vdiffm(grid, s, vf, m, n, delt1)
+        ckpt(n)   # budget_sums(4,n) after ale_vdiffm (:205)
 
     # tracer sources and sinks (updtrc, mod_blom_step.F90:209-213), after
     # the vertical physics
@@ -288,15 +312,24 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         s = idlage_step(s, par.itriag, n, delt1, par.nday_in_year)
     if par.itrbgc >= 0 and bgc_forcing is not None:
         _mark('hamocc')
-        s, _ = hamocc_step(grid, e, par.bgc, s, bgc_forcing, par.itrbgc,
-                           n, m, delt1, ti=par.bgc_ti, cp=par.bgc_cp)
+        s, bgc_diags = hamocc_step(grid, e, par.bgc, s, bgc_forcing,
+                                   par.itrbgc, n, m, delt1, ti=par.bgc_ti,
+                                   cp=par.bgc_cp)
+        if bgc_diag_out is not None:
+            bgc_diag_out.append(bgc_diags)
+    ckpt(n)   # budget_sums(5,n) after updtrc (:215)
 
     _mark('barotp')
     s = barotp(grid, s, utotn, vtotn, m, n, par.lstep, dlt, par.barotp)
     _mark('pbcor2')
     s = pbcor2(grid, e, s, m, n, dlt)
+    ckpt(m)   # budget_sums(6,m) after pbcor2 (:224)
     _mark('tmsmt2')
     s = tmsmt2(grid, s, m, n, isopyc)
+    ckpt(m)   # budget_sums(7,m) after tmsmt2 (:230)
+    if cols is not None:
+        _mark('budget')
+        budget_out.extend(budget_sums_many(cols))
 
     if grid.arctic:
         # enforce the fold-duplicated top-row degrees of freedom (the
@@ -308,16 +341,3 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
         s = sync_state(s)
     _mark('end')
     return s, dfl
-
-
-def two_step(grid: Grid, e: eos.EosParams, par: StepParams,
-             coeffs_i: CppmCoeffs, coeffs_j: CppmCoeffs, s: State,
-             forcing: Forcing, dfl: DiffusionFields, d1: float, d2: float,
-             swabs: Optional[SwabsFields] = None,
-             bgc_forcing: Optional[BgcForcing] = None):
-    """Two steps covering both time-level parities: (m, n) = (0, 1) then
-    (1, 0) — the body of blom_tpu's make_two_step scan."""
-    s, dfl = blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                       0, 1, d1, swabs, bgc_forcing)
-    return blom_step(grid, e, par, coeffs_i, coeffs_j, s, forcing, dfl,
-                     1, 0, d2, swabs, bgc_forcing)

@@ -187,13 +187,36 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    restoring path's final state at 360x384 in f64 on the card against
    the CPU within BEN02_REL, then the chain in f32 on the card: finite,
    0 <= ficem <= fice_max, hicem >= 0;
-12. the kernels summary line (with the tracer counts each kernel met and
+12. diagnostics: the fuk95 main path with the instrumentation on
+   (bench.py's physics, 384x360x53 f32): every registry id of io/dia.py
+   that the path defines at 'ave', one each of min, max and sq on
+   mixed-layer and sst ids and every MSC id in three groups, with cnsvdi
+   and chk, 4 timed steps after 2, beside the same steps without it:
+   the slice's gates, every ok flag, nacc, the accumulators finite over
+   water, the budget's relative mass change, launches per step as the
+   main path's, host syncs in the timed steps (eddtra's counter and the
+   synchronizing calls that torch.cuda.set_sync_debug_mode counts) no
+   more than without it and none but eddtra's; s/step of both, the
+   device ms per step of accumulate and of the budget checkpoints, the
+   peak device memory, the seconds and bytes of write_netcdf and
+   write_netcdf_compressed; dia_parity: one f64 step of each time-level
+   parity with the instrumentation at 24x8x8, card against CPU, the
+   accumulators and budget sums within STEP_REL (the diffusive salt
+   fluxes, rounding alone in fuk95, of the diffusive heat fluxes);
+   restart: ERS (4 steps straight against 2, write_restart, read_restart
+   onto the card, 2) for NOINY and NOINYAGE at 384x360x53 f32, every
+   State field bit for bit, the write and read seconds and the file
+   size; run_case: a deck with &DIAPHY (DIA_DECK: a sub-daily and a
+   compressed group) through build_case and run_case at 384x360x53 f32
+   for 4 steps: the files tests/test_dia_groups.py expects, sst finite
+   over water, the restart, run.status and the final dp CRC;
+13. the kernels summary line (with the tracer counts each kernel met and
    its tripolar inputs) and the script's total seconds, then the device
    line last.  It fails if a variant of a kernel launched on none of the
    paths (fuk95, the core, the isopycnic path, the tracer paths, the
    carbon-isotope path, the decks, the tripolar grid, the vertical
    physics, the high-order ALE methods, the transport options, the
-   surface physics).
+   surface physics, the instrumented path, the restarts, run_case).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -2985,6 +3008,447 @@ def run_deck(dev, name, expcnf, paths):
     return ok and pok
 
 
+# ---------------------------------------------- diagnostics and restarts
+
+NSTEPS_DIA = (2, 4)                 # warm-up, timed steps
+NSTEPS_ERS = 4                      # straight run; the split run is 2 + 2
+PARITY_DIA = dict(itdm=24, jtdm=8, kdm=8)
+MASS_REL = 1e-5                     # the slice's mass gate
+# the along-layer diffusive salt fluxes: fuk95's salinity is uniform, so
+# they are rounding alone (~1e-12 of the diffusive heat fluxes at 24x8x8)
+# and differ between the card and the CPU by a fraction of their own
+# size.  dia_parity holds their error within STEP_REL of the diffusive
+# heat flux of the same direction and kind (the same operator on a
+# tracer with gradients): a wrong salt flux of that operator's size
+# fails, rounding does not
+DIA_NOISE = {'usflld': 'utflld', 'vsflld': 'vtflld',
+             'usflldlvl': 'utflldlvl', 'vsflldlvl': 'vtflldlvl'}
+# one each of min, max and sq on mixed-layer and sst ids
+DIA_OPS = (('mldl82', 'min'), ('mldb04', 'max'), ('sst', 'sq'))
+# tests/test_dia_groups.py's deck at the main path's dtype: a sub-daily
+# group (240 averages a day: every 2 steps at baclin 180 s) and a
+# wet-point compressed one
+DIA_DECK = """\
+&LIMITS
+  NDAY1 = 0
+  NDAY2 = 1
+  RUNID = 'dg001'
+  EXPCNF = 'fuk95'
+  BACLIN = 180.
+  BATROP = 6.
+  RSTFRQ = 0
+  DTYPE = 'float32'
+/
+&DIAPHY
+  GLB_FNAMETAG = 'hd','hm'
+  GLB_AVEPERIO = -240, 1
+  GLB_FILEFREQ = 1, 30
+  GLB_COMPFLAG = 0, 1
+  GLB_NCFORMAT = 0, 0
+  H2D_SST = 1, 1
+  H2D_SSS = 1, 0
+  H2D_MLDL82 = 0, 1
+  H2D_MLDL82MX = 1, 0
+  H2D_TAUX = 1, 0
+  LYR_TEMP = 0, 1
+  LVL_SALN = 0, 1
+  MSC_TEMPGA = 1, 1
+/
+"""
+
+
+def scratch_dir(name):
+    """A fresh directory build/<name> beside this script (git ignores
+    build/)."""
+    import shutil
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / 'build' / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def dia_groups(model):
+    """Three groups over every registry id that the model's path defines
+    (the tracer-stack ids need tracers): the 2-D and scalar ids with
+    DIA_OPS; the layer ids; the z-level ids with every MSC id (which
+    adds the layer ids they read).  At 384x360x53 in f32 each group's
+    file stays under the 2 GiB offsets of NetCDF3 classic (one group of
+    all the layer and z-level ids would not: ~2.2 GB)."""
+    from blom_tpu_torch.io import dia
+    ntr = model.state.trc.shape[1]
+    fields = {'2d': [], '3d': [], 'zlv': []}
+    for name, (dims, _) in dia.FIELD_REGISTRY.items():
+        if dims in ('tr3d', 'trzlv') and not ntr:
+            continue
+        fields[{'scalar': '2d', 'tr3d': '3d', 'trzlv': 'zlv'}.get(
+            dims, dims)].append(name)
+    fields['2d'] += list(DIA_OPS)
+    fields['zlv'] += [(n, 'msc') for n in dia.MSC_REGISTRY]
+    return tuple(dia.init_group(model.grid, model.state, f,
+                                forcing=model.forcing, dfl=model.dfl)
+                 for f in fields.values())
+
+
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA calls it made), counted as the
+    warnings of torch.cuda.set_sync_debug_mode('warn')."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return out, sum('synchroniz' in str(w.message) for w in caught)
+
+
+def finite_over_water(group, wet):
+    """{key: all finite over water} of a group's accumulators."""
+    import torch
+    return {k: bool(torch.isfinite(a[..., wet] if a.dim() >= 2 else a)
+                    .all()) for k, a in group.acc.items()}
+
+
+def event_timer(fn, events):
+    """fn wrapped to append a pair of CUDA events around each call."""
+    import torch
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    return timed
+
+
+def profiled(fn, nsteps):
+    """(fn(), profile): the device ms per step of the budget checkpoints
+    (the 'budget' phase blom_step marks), of the steps themselves (first
+    mark to 'end'), of standalone._accumulate and, within it, of the
+    z-level weights, the z-level products and the mixed-layer walks
+    (CUDA events around each call), over fn, a run of `nsteps`."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics import step
+    from blom_tpu_torch.io import dia
+    wrapped = {(standalone, '_accumulate'): []}
+    wrapped.update({(dia, name): [] for name in (
+        'zlev_weights', 'to_zlev_w', '_mld_walk')})
+    origs = {key: getattr(*key) for key in wrapped}
+    for (mod, name), events in wrapped.items():
+        setattr(mod, name, event_timer(origs[mod, name], events))
+    step.phase_marks = marks = []
+    try:
+        out = fn()
+    finally:
+        step.phase_marks = None
+        for (mod, name), f in origs.items():
+            setattr(mod, name, f)
+    torch.cuda.synchronize()
+
+    def ms(events):
+        return sum(e0.elapsed_time(e1) for e0, e1 in events) / nsteps
+    budget = sum(e0.elapsed_time(e1) for (name, e0), (_, e1)
+                 in zip(marks, marks[1:]) if name == 'budget')
+    first, steps_ms = marks[0][1], 0.
+    for (name, ev), nxt in zip(marks, marks[1:] + [None]):
+        if name == 'end':
+            steps_ms += first.elapsed_time(ev)
+            first = nxt and nxt[1]
+    parts = {name: evs for (mod, name), evs in wrapped.items()
+             if mod is dia}
+    return out, dict(
+        budget_ms_per_step=budget / nsteps,
+        accumulate_ms_per_step=ms(wrapped[standalone, '_accumulate']),
+        accumulate_parts_ms_per_step={n: ms(e) for n, e in parts.items()},
+        accumulate_part_calls_per_step={n: len(e) / nsteps
+                                        for n, e in parts.items()},
+        step_ms_without_accumulate=steps_ms / nsteps)
+
+
+def run_diagnostics(dev, paths, syncs, models):
+    """The fuk95 main path with the instrumentation on, at 384x360x53 in
+    f32 with bench.py's physics: every registry id the path defines at
+    'ave', DIA_OPS and every MSC id in three groups, cnsvdi and chk.  Plain
+    and instrumented, each NSTEPS_DIA (warm-up, timed) from the initial
+    state, the instrumented timed steps profiled; gates: the slice's,
+    every ok flag, nacc, the accumulators finite over water, the budget's
+    relative mass change within MASS_REL, launches per step as the main
+    path's, host syncs in the timed steps (eddtra's counter, and the
+    synchronizing calls that set_sync_debug_mode counts) no more than the
+    plain run's, and every synchronizing call of the instrumented run
+    eddtra's; reported: s/step of both, the device ms per step of
+    accumulate and of the budget checkpoints, the peak device memory,
+    the seconds and bytes of write_netcdf and write_netcdf_compressed of
+    each group.  The model, at its initial state, goes into
+    models['NOINY'] for the restart phase."""
+    import os
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    from blom_tpu_torch.io import dia
+    warm, nsteps = NSTEPS_DIA
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    model = standalone.build_fuk95(dtype=torch.float32, itdm=II, jtdm=JJ,
+                                   kdm=KK, device=dev)
+    model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
+    mass0 = mass(model, model.state.dp[1])
+    dfl0 = model.dfl
+
+    standalone.run(model, warm)
+    zero_counters()
+    t0 = time.perf_counter()
+    _, plain_syncs = count_syncs(lambda: standalone.run(model, nsteps))
+    plain_wall = time.perf_counter() - t0
+    plain_eddtra = counters()['host_syncs']
+
+    groups = dia_groups(model)
+    model.dfl = dfl0
+    standalone.run(model, warm, dia_group=groups, cnsvdi=True, chk=True)
+    model.dfl = dfl0
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    ((s, _, ex), instr_syncs), prof = profiled(lambda: count_syncs(
+        lambda: standalone.run(model, nsteps, dia_group=groups,
+                               cnsvdi=True, chk=True)), nsteps)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    eddtra_syncs = counts.pop('host_syncs')
+    paths['fuk95_diagnostics'] = counts
+    syncs['fuk95_diagnostics'] = eddtra_syncs / nsteps
+    ok, rec = slice_gates(model, s, nsteps, mass0)
+    ok &= launches_ok(counts, model.par, nsteps)
+    flags = ex['ok'].tolist()
+    wet = model.grid.ip > 0
+    finite = {}
+    for g in ex['dia_group']:
+        finite.update(finite_over_water(g, wet))
+    mass_b = ex['budgets'].mass
+    mass_rel = float((mass_b[-1, -1] - mass_b[0, 0]) / mass_b[0, 0])
+    nacc = [float(g.nacc) for g in ex['dia_group']]
+    gates = dict(ok_flags=all(flags), nacc=nacc == [nsteps] * 3,
+                 finite=all(finite.values()),
+                 budget_mass=abs(mass_rel) <= MASS_REL,
+                 host_syncs=(instr_syncs <= plain_syncs
+                             and instr_syncs <= eddtra_syncs
+                             and eddtra_syncs <= plain_eddtra))
+    ok &= all(gates.values())
+
+    out = scratch_dir('dia')
+    writes = {}
+    for gi, g in enumerate(ex['dia_group']):
+        for writer in ('write_netcdf', 'write_netcdf_compressed'):
+            path = str(out / f'group{gi}_{writer}.nc')
+            t0 = time.perf_counter()
+            getattr(dia, writer)(path, model.grid, g, 1.)
+            writes[f'group{gi}/{writer}'] = dict(
+                seconds=time.perf_counter() - t0,
+                bytes=os.path.getsize(path))
+            os.remove(path)
+    emit('diagnostics', shape=[KK, JJ, II], dtype='float32',
+         warmup_steps=warm, steps=nsteps, ok=ok, gates=gates, **rec,
+         n_fields=[len(g.acc) for g in ex['dia_group']],
+         not_finite=[k for k, v in finite.items() if not v],
+         ok_flags=flags, nacc=nacc, budget_rel_mass_change=mass_rel,
+         budget_checkpoints=list(mass_b.shape), launches=counts,
+         host_syncs_per_step=eddtra_syncs / nsteps,
+         sync_debug_per_step={'plain': plain_syncs / nsteps,
+                              'instrumented': instr_syncs / nsteps},
+         seconds_per_step=wall / nsteps,
+         plain_seconds_per_step=plain_wall / nsteps, **prof,
+         peak_mem_bytes=max(peak_before,
+                            torch.cuda.max_memory_allocated(dev)),
+         base_mem_bytes=base_mem, writes=writes)
+    model.dfl = dfl0
+    models['NOINY'] = model
+    return ok
+
+
+def run_dia_parity(dev):
+    """One f64 step of each time-level parity with the instrumentation on
+    at PARITY_DIA, card against CPU: every accumulator of the groups
+    and the seven budget checkpoints within STEP_REL of its largest
+    magnitude (DIA_NOISE's of their heat flux's)."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics import step
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    models = {}
+    for d in (dev, 'cpu'):
+        m = standalone.build_fuk95(dtype=torch.float64, device=d,
+                                   **PARITY_DIA)
+        m.par = m.par._replace(difest=DifestParams(**BENCH_DIFEST))
+        models[d] = m
+    worst = {}
+    for m_, n_ in ((0, 1), (1, 0)):
+        out = {}
+        for d, mo in models.items():
+            bout = []
+            s, dfl = step.blom_step(
+                mo.grid, mo.e, mo.par, mo.coeffs_i, mo.coeffs_j,
+                mo.state.clone(), mo.forcing, mo.dfl, m_, n_,
+                mo.clock.delt1, mo.swabs, mo.bgc_forcing, budget_out=bout)
+            groups = standalone._accumulate(mo, dia_groups(mo), s, n_, dfl,
+                                            {})
+            acc = {k: v for g in groups for k, v in g.acc.items()}
+            for i, b in enumerate(bout):
+                for k in ('mass', 'heat', 'salt'):
+                    acc[f'budget{i + 1}_{k}'] = getattr(b, k)
+            out[d] = acc
+        errs = {}
+        for k, a in out['cpu'].items():
+            b = out[dev][k].cpu()
+            scale = out['cpu'][DIA_NOISE.get(k, k)]
+            errs[k] = float((a - b).abs().max()
+                            / scale.abs().max().clamp_min(1e-300))
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+        worst[f'm{m_}n{n_}'] = dict(
+            worst=top[0], top5=top,
+            salt_diffusive={k: dict(
+                rel_err=errs[k], own_max=float(out['cpu'][k].abs().max()),
+                scale=float(out['cpu'][h].abs().max()))
+                for k, h in DIA_NOISE.items()})
+    ok = all(w['worst'][1] <= STEP_REL for w in worst.values())
+    emit('dia_parity', ok=ok, tolerance=STEP_REL, size=PARITY_DIA,
+         parities=worst)
+    return ok
+
+
+ERS_CASES = {'NOINY': {}, 'NOINYAGE': dict(use_idlage=True)}
+
+
+def run_restart(dev, paths, models):
+    """ERS on the card (tools/testsuite.py:138-139) for NOINY and
+    NOINYAGE at 384x360x53 in f32 with bench.py's physics: NSTEPS_ERS
+    steps straight against half of them, write_restart, read_restart onto
+    the card and the other half; every State field bit for bit.  On a
+    difference, the straight run again from the same state says whether
+    the step itself is deterministic.  Reported: the write and read
+    seconds and the file's size.  A case runs on the model at its initial
+    state that an earlier phase left in `models` (the diagnostics phase's
+    NOINY), else on one built here."""
+    import dataclasses
+    import os
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    from blom_tpu_torch.io import restart
+    ok_all = True
+    out = scratch_dir('restart')
+    for name, kw in ERS_CASES.items():
+        model = models.pop(name, None)
+        if model is None:
+            model = standalone.build_fuk95(dtype=torch.float32, itdm=II,
+                                           jtdm=JJ, kdm=KK, device=dev,
+                                           **kw)
+            model.par = model.par._replace(
+                difest=DifestParams(**BENCH_DIFEST))
+        dfl0 = model.dfl
+        zero_counters()
+        s4, c4 = standalone.run(model, NSTEPS_ERS)
+        torch.cuda.synchronize()
+        counts = counters()
+        counts.pop('host_syncs')
+        paths[f'restart_{name}'] = counts
+        model.dfl = dfl0
+        s2, c2 = standalone.run(model, NSTEPS_ERS // 2)
+        path = str(out / f'{name}.npz')
+        t0 = time.perf_counter()
+        restart.write_restart(path, s2, c2)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sr, cr = restart.read_restart(path, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        os.remove(path)
+        s4r, c4r = standalone.run(
+            dataclasses.replace(model, state=sr, clock=cr),
+            NSTEPS_ERS - NSTEPS_ERS // 2)
+        fields = [f.name for f in dataclasses.fields(s4)]
+        differ = [f for f in fields
+                  if not torch.equal(getattr(s4, f), getattr(s4r, f))]
+        rec = {}
+        if differ:
+            model.dfl = dfl0
+            again, _ = standalone.run(model, NSTEPS_ERS)
+            rec['straight_runs_differ_in'] = [
+                f for f in fields
+                if not torch.equal(getattr(s4, f), getattr(again, f))]
+        ok = (not differ and c4r.nstep == c4.nstep
+              and launches_ok(counts, model.par, NSTEPS_ERS)
+              and bool(torch.isfinite(s4.dp).all()))
+        emit('restart', case=name, shape=[KK, JJ, II], dtype='float32',
+             ok=ok, steps=NSTEPS_ERS, bitwise=not differ,
+             differing_fields=differ, **rec, n_fields=len(fields),
+             write_seconds=write_s, read_seconds=read_s, file_bytes=nbytes,
+             launches=counts)
+        ok_all &= ok
+        del model, s4, s2, sr, s4r
+    return ok_all
+
+
+def run_run_case(dev, paths):
+    """DIA_DECK through load_limits, build_case (fuk95 at 384x360x53) and
+    run_case for 4 steps into build/run_case: 2 'hd' files and one
+    compressed 'hm' file (tests/test_dia_groups.py), sst finite over
+    water, the final rotating restart, run.status and the final dp CRC;
+    launches per step as the main path's."""
+    import os
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+    from blom_tpu_torch.core.config import load_limits
+    from blom_tpu_torch.drivers import case
+    from blom_tpu_torch.io.checksum import field_crc
+    decks = scratch_dir('run_case_deck')
+    (decks / 'limits').write_text(DIA_DECK)
+    cfg = load_limits(str(decks / 'limits'))
+    model = build_deck_case(cfg, dev, itdm=II, jtdm=JJ, kdm=KK)
+    rundir = scratch_dir('run_case')
+    nsteps = 4
+    zero_counters()
+    t0 = time.perf_counter()
+    s, clock, crc = case.run_case(model, cfg, rundir=str(rundir),
+                                  nsteps=nsteps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    counts.pop('host_syncs')
+    paths['fuk95_run_case'] = counts
+    files = sorted(os.listdir(rundir))
+    hd = [f for f in files if f.startswith('dg001_hd_')]
+    hm = [f for f in files if f.startswith('dg001_hm_')]
+    wet = (model.grid.ip > 0).cpu().numpy()
+    with netcdf_file(str(rundir / hd[-1]), 'r', mmap=False) as f:
+        sst_finite = bool(np.isfinite(f.variables['sst'][0][wet]).all())
+        variables = sorted(f.variables)
+    gates = dict(
+        files=len(hd) == 2 and len(hm) == 1,
+        restart=any(f.startswith('dg001_restphy_') for f in files),
+        status=(rundir / 'run.status').read_text() == 'success\n',
+        crc=crc == field_crc(s.dp), sst_finite=sst_finite,
+        launches=launches_ok(counts, model.par, nsteps))
+    ok = all(gates.values())
+    sizes = {f: os.path.getsize(rundir / f) for f in files}
+    emit('run_case', shape=[KK, JJ, II], dtype=cfg.dtype, steps=nsteps,
+         ok=ok, gates=gates, files=sizes, hd_variables=variables,
+         crc=f'{crc:08x}', seconds=wall, launches=counts)
+    for f in files:
+        os.remove(rundir / f)
+    return ok
+
+
 def kernel_summary(results, paths, tracer_results, tripolar_results):
     """The kernels line: one entry per kernel, with its variants.  A
     kernel's `launches` is the sum of its wrapper's counts on every path.
@@ -3155,6 +3619,11 @@ def main():
     for expcnf in DECK_RUNS:
         for name in DECKS:
             ok &= run_deck(dev, name, expcnf, paths)
+    models = {}
+    ok &= run_diagnostics(dev, paths, syncs, models)
+    ok &= run_dia_parity(dev)
+    ok &= run_restart(dev, paths, models)
+    ok &= run_run_case(dev, paths)
 
     kernels = kernel_summary(results, paths, tracer_results,
                              tripolar_results)

@@ -28,7 +28,8 @@ CPPM) are written to files in f64 and read by both packages:
 - a fuk95 deck with &VCOORD VCOORD_TYPE = 'isopyc_bulkml' builds the
   isopycnic fuk95 through both packages' build_case, with the same
   parameters and (to rounding) the same initial state;
-- a &DIAPHY group and experiments other than fuk95 and channel raise."""
+- a &DIAPHY group gives blom_tpu's dia_groups; experiments other than
+  fuk95 and channel raise."""
 
 import dataclasses
 
@@ -293,12 +294,24 @@ def test_reconstruction_method_deck_matches_blom_tpu(tmp_path, monkeypatch,
     assert not bad, bad
 
 
-def test_diaphy_raises(tmp_path):
+def test_diaphy_matches_blom_tpu(tmp_path):
+    """A deck with &DIAPHY: the port's load_limits gives blom_tpu's
+    dia_groups (the groups of tests/test_dia_groups.py's deck), and the
+    rest of the config as before."""
+    from tests.test_dia_groups import DECK
     path = _deck(tmp_path, 'A')
     with open(path, 'a') as f:
-        f.write("&DIAPHY\n  GLB_FNAMETAG = 'hd'\n/\n")
-    with pytest.raises(NotImplementedError, match='DIAPHY'):
-        tconfig.load_limits(path)
+        f.write(DECK[DECK.index('&DIAPHY'):])
+    ref = jconfig.load_limits(path)
+    out = tconfig.load_limits(path)
+    assert len(out.dia_groups) == len(ref.dia_groups) == 2
+    for a, b in zip(out.dia_groups, ref.dia_groups):
+        assert not b.sharded_output
+        assert {f.name: getattr(a, f.name) for f in dataclasses.fields(a)} \
+            == {f.name: getattr(b, f.name) for f in dataclasses.fields(a)}
+    assert ('mldl82', 'max') in out.dia_groups[0].fields
+    ref.dia_groups = out.dia_groups = ()
+    assert dataclasses.asdict(out) == dataclasses.asdict(ref)
 
 
 @pytest.mark.parametrize('expcnf', ['single_column', 'noforcing',

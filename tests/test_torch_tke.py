@@ -180,9 +180,11 @@ def test_ale_step_with_tke_slots_runs_no_closure(tmp_path_factory):
     rec, js = VRef(jm, 'ale').run(2, FULL_PHASES)
     assert not any(r[1] == 'tke' for r in rec)
     assert not phase_errors(rec, tm, 'ale', forced=False)
-    ts, _ = tstep.two_step(tm.grid, tm.e, tm.par, tm.coeffs_i, tm.coeffs_j,
-                           tm.state.clone(), tm.forcing, tm.dfl,
-                           tm.clock.delt1, 2. * tm.par.baclin, tm.swabs)
+    ts, dfl = tm.state.clone(), tm.dfl
+    for m, n, d in ((0, 1, tm.clock.delt1), (1, 0, 2. * tm.par.baclin)):
+        ts, dfl = tstep.blom_step(tm.grid, tm.e, tm.par, tm.coeffs_i,
+                                  tm.coeffs_j, ts, tm.forcing, dfl, m, n, d,
+                                  tm.swabs)
     # without the closure the uniform slots stay at their minima
     wet = tm.grid.ip > 0
     np.testing.assert_allclose(ts.trc[0, 0][:, wet].numpy(), ttke.tke_min,
