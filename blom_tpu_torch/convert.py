@@ -4,7 +4,8 @@ The dicts are keyed by the field names the JAX package uses (they match
 the port's), so a caller can carry a blom_tpu Grid, State (its tracers
 included), CppmCoeffs, Forcing, BgcForcing, the sediment's SedState,
 DiffusionFields, SwabsFields, CmnFields or VmixFields, and the surface
-physics' SeaiceState, Ben02State, Ben02Clim and NiwState, across with
+physics' SeaiceState, Ben02State, Ben02Clim and NiwState, and the
+coupled cap's ImportFields, CesmForcing and ExportFields across with
 ``np.asarray`` on each field.  The BGC's TracerIndex and CisoParams are
 plain Python and cross as they are.
 Nothing here touches a JAX object."""
@@ -22,6 +23,7 @@ from .core.grid import TENSOR_FIELDS, Grid
 from .core.state import State
 from .dynamics.cmnfld import CmnFields
 from .dynamics.cppm import CppmCoeffs
+from .drivers.coupled import CesmForcing, ExportFields, ImportFields
 from .dynamics.diffusion_fields import DiffusionFields
 from .phys.ben02 import Ben02Clim, Ben02State
 from .phys.forcing import Forcing
@@ -110,3 +112,24 @@ def ben02_clim_from_numpy(d, dtype=torch.float64,
 
 def niw_from_numpy(d, dtype=torch.float64, device='cpu') -> NiwState:
     return NiwState(**_fields(NiwState, d, dtype, device))
+
+
+def _optional_fields(cls, d, dtype, device):
+    """A NamedTuple whose fields may be None (absent or None in `d`)."""
+    return cls(**{k: None if d.get(k) is None else _t(d[k], dtype, device)
+                  for k in cls._fields})
+
+
+def imports_from_numpy(d, dtype=torch.float64,
+                       device='cpu') -> ImportFields:
+    return _optional_fields(ImportFields, d, dtype, device)
+
+
+def cesm_forcing_from_numpy(d, dtype=torch.float64,
+                            device='cpu') -> CesmForcing:
+    return CesmForcing(**_fields(CesmForcing, d, dtype, device))
+
+
+def exports_from_numpy(d, dtype=torch.float64,
+                       device='cpu') -> ExportFields:
+    return _optional_fields(ExportFields, d, dtype, device)

@@ -76,8 +76,17 @@ class EosParams:
 
 # expcnf -> freezing-temperature coefficients (atf, btf, ctf),
 # mod_eos.F90:135-150
-_FREEZE_COEFFS = {'fuk95': (-0.0547, 0.0, 0.0),
-                  'channel': (-0.0547, 0.0, 0.0)}
+_FREEZE_COEFFS = {
+    'cesm': (0.0, -1.8, 0.0),
+    'ben02clim': (-0.0547, 0.0, 0.0),
+    'ben02syn': (-0.0547, 0.0, 0.0),
+    'noforcing': (-0.0547, 0.0, 0.0),
+    'fuk95': (-0.0547, 0.0, 0.0),
+    'single_column': (-0.0547, 0.0, 0.0),
+    'channel': (-0.0547, 0.0, 0.0),
+    'isomip1': (-5.7846e-2, 1.0307e-1, -7.7961e-9),
+    'isomip2': (-5.7846e-2, 1.0307e-1, -7.7961e-9),
+}
 
 
 def init_eos(pref: float = 0.0, expcnf: str = 'fuk95') -> EosParams:
@@ -85,8 +94,6 @@ def init_eos(pref: float = 0.0, expcnf: str = 'fuk95') -> EosParams:
     (inieos, mod_eos.F90:85-160): pressure terms absorbed into the
     quadratic coefficients, 1/alpha0 subtracted from the numerator so
     that sig() returns sigma units."""
-    if expcnf not in _FREEZE_COEFFS:
-        raise NotImplementedError(f'expcnf {expcnf!r} is not ported')
     ap21 = a21 + b21 * pref
     ap22 = a22 + b22 * pref
     ap23 = a23 + b23 * pref

@@ -1,11 +1,9 @@
 """Model clock: baroclinic/barotropic step bookkeeping.
 
-The port's own copy of the part of `blom_tpu/core/modeltime.py` that
-`init_timevars` of the fuk95 and channel experiments, the delt1
-schedule of the standalone driver and the climatologies' time
-interpolation (`month_interp`, `phys/swabs.py` `updswa`) need (BLOM's
-mod_time.F90).  The
-clock is advanced on the host once per baroclinic step; only `delt1`
+The port's own copy of `blom_tpu/core/modeltime.py` (BLOM's
+mod_time.F90): `init_timevars` for every experiment configuration, the
+delt1 schedule of the drivers and the climatologies' time interpolation
+(`month_interp`, `phys/swabs.py` `updswa`).  The clock is advanced on the host once per baroclinic step; only `delt1`
 enters the step, as a Python float.  The first steps from initial conditions are forward
 (delt1 = baclin), later steps leap-frog (delt1 = 2*baclin)."""
 
@@ -17,7 +15,17 @@ import math
 from . import calendar as cal
 
 # Calendar per experiment configuration (mod_time.F90:76-99).
-_EXPCNF_CALENDAR = {'fuk95': '360_day', 'channel': '360_day'}
+_EXPCNF_CALENDAR = {
+    'cesm': 'noleap',
+    'ben02clim': '360_day',
+    'ben02syn': 'standard',
+    'noforcing': '360_day',
+    'fuk95': '360_day',
+    'channel': '360_day',
+    'single_column': '360_day',
+    'isomip1': '360_day',
+    'isomip2': '360_day',
+}
 
 _EPSILT = 1.e-11
 
@@ -86,8 +94,6 @@ def init_timevars(expcnf: str, baclin: float, batrop: float,
                   idate: int, idate0: int,
                   nstep0: int = 0) -> ModelTime:
     """Build the initial clock (mod_time.F90:69-131 init_timevars)."""
-    if expcnf not in _EXPCNF_CALENDAR:
-        raise NotImplementedError(f'expcnf {expcnf!r} is not ported')
     calendar = _EXPCNF_CALENDAR[expcnf]
 
     nstep_in_day = round(86400.0 / baclin)

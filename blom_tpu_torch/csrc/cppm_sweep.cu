@@ -144,13 +144,15 @@ struct Line {
   long stride;    // 2-D offset between neighbouring cells of the line
   T *sh;          // shared arrays
 
-  // neighbour position; false where a closed end is crossed (offsets
-  // are at most +-2, so one add or subtract wraps a periodic line)
+  // neighbour position; false where a closed end is crossed.  A
+  // periodic line wraps by the remainder, as torch.roll does: an offset
+  // of +-2 passes more than one period on a line of length 1.
   __device__ __forceinline__ bool nb(int p, int off, int &q) const {
     q = p + off;
     if (q < 0 || q >= N) {
       if (!periodic) return false;
-      q += q < 0 ? N : -N;
+      q %= N;
+      if (q < 0) q += N;
     }
     return true;
   }

@@ -269,6 +269,15 @@ __device__ __forceinline__ void ghost_field(int g, int &slot, int &kind,
   }
 }
 
+// Index i wrapped into [0, n) by the remainder, as torch.roll wraps: a
+// read up to three points past an edge passes more than one period where
+// n < 3.
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  if (i >= 0 && i < n) return i;
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
 // The row a ghost of point class `kind` mirrors and the mirrored column
 // of column i (in [0, I)): p, u from row J-3; q, v from J-2; p, v
 // reversed, u, q reversed and rolled by one
@@ -336,17 +345,18 @@ struct Tile {
   }
 
   // Wraps (j, i) into the grid on both axes and returns false past a
-  // closed edge.  Indices reach at most three points past an edge, so one
-  // add or subtract wraps them; a read at the wrapped index is then in
-  // bounds either way, and the shifted reads below load unconditionally
-  // and select, with no branch.
+  // closed edge.  Indices reach at most three points past an edge, more
+  // than one period of an axis shorter than three, so they wrap by the
+  // remainder; a read at the wrapped index is then in bounds either way,
+  // and the shifted reads below load unconditionally and select, with no
+  // branch.
   __device__ __forceinline__ bool wrap(int &j, int &i) const {
     if constexpr (!EDGE) {
       return true;
     } else {
       const bool in_i = i >= 0 && i < a.I, in_j = j >= 0 && j < a.J;
-      i += i < 0 ? a.I : (i >= a.I ? -a.I : 0);
-      j += j < 0 ? a.J : (j >= a.J ? -a.J : 0);
+      i = wrap_index(i, a.I);
+      j = wrap_index(j, a.J);
       return (in_i || a.periodic_i) && (in_j || a.periodic_j);
     }
   }
@@ -361,7 +371,7 @@ struct Tile {
     if constexpr (FOLD) {
       if (j == a.J) {
         const bool in_i = i >= 0 && i < a.I;
-        i += i < 0 ? a.I : (i >= a.I ? -a.I : 0);
+        i = wrap_index(i, a.I);
         j = fold_src_row(KIND, a.J);
         i = fold_col(KIND, i, a.I);
         return in_i || a.periodic_i;
@@ -424,7 +434,7 @@ struct Tile {
   __device__ __forceinline__ T ghost(int g, int li) const {
     int i = it + li;
     const bool in_i = i >= 0 && i < a.I;
-    i += i < 0 ? a.I : (i >= a.I ? -a.I : 0);
+    i = wrap_index(i, a.I);
     const T v = a.ghost[ghost_row(g) + i];
     return in_i || a.periodic_i ? v : T(0);
   }

@@ -3,8 +3,9 @@
 Counterpart of `build_case` in `blom_tpu/drivers/case.py`: a BLOM
 `limits` deck (rdlim, mod_rdlim.F90:137-250) builds a runnable
 experiment, with the deck's momentum, barotropic, advection and ALE
-reconstruction options applied in blom_tpu's order; the port builds the
-fuk95 and channel experiments.  `run_case` is blom_tpu's run loop (the
+reconstruction options applied in blom_tpu's order, for every expcnf of
+blom_tpu's dispatch (fuk95, channel, single_column, noforcing, and the
+grid-file ben02clim, ben02syn and cesm).  `run_case` is blom_tpu's run loop (the
 standalone main program, drivers/nocoupler/blom.F:20-67): diagnostic
 groups with their output alarms, rotating restarts, the final checksum
 and run.status."""
@@ -44,10 +45,26 @@ def build_case(limits_path: str = None, cfg: RunConfig = None,
     elif cfg.expcnf == 'channel':
         model = standalone.build_channel(dtype=dtype, baclin=cfg.baclin,
                                          batrop=cfg.batrop, device=device)
+    elif cfg.expcnf in ('single_column', 'noforcing'):
+        # blom_tpu builds the single column for noforcing too
+        model = standalone.build_single_column(
+            dtype=dtype, baclin=cfg.baclin, batrop=cfg.batrop,
+            device=device)
+    elif cfg.expcnf in ('ben02clim', 'ben02syn', 'cesm'):
+        # production grid-file configurations (mod_rdlim.F90 GRFILE/
+        # ICFILE; mod_inigeo + mod_inicon dispatch); as in blom_tpu, no
+        # arctic fold is passed on: the grid is closed in j
+        if not cfg.grfile:
+            raise ValueError(
+                f'expcnf {cfg.expcnf!r} requires GRFILE in the deck')
+        model = standalone.build_gridfile(
+            cfg.grfile, kdm=cfg.kdm, baclin=cfg.baclin,
+            batrop=cfg.batrop, expcnf=cfg.expcnf,
+            icfile=cfg.icfile or None, dtype=dtype, pref=cfg.pref,
+            cwmod=cfg.cwmod, idate=cfg.idate, idate0=cfg.idate0,
+            device=device)
     else:
-        raise NotImplementedError(
-            f'expcnf {cfg.expcnf!r} is not ported to blom_tpu_torch '
-            "(only 'fuk95' and 'channel')")
+        raise ValueError(f'unsupported expcnf {cfg.expcnf!r}')
 
     model.par = model.par._replace(
         momtum=MomtumParams(

@@ -1,8 +1,9 @@
 """Standalone model driver.
 
-Counterpart of `build_fuk95`, `build_channel`, `build_tripolar` and `run`
-in `blom_tpu/drivers/standalone.py` (BLOM's
-drivers/nocoupler/blom.F:20-67): build the fuk95, the channel or the
+Counterpart of `build_fuk95`, `build_channel`, `build_gridfile`,
+`build_single_column`, `build_tripolar` and `run` in
+`blom_tpu/drivers/standalone.py` (BLOM's drivers/nocoupler/blom.F:20-67):
+build the fuk95, the channel, a grid-file, the single-column or the
 synthetic tripolar configuration, initialize it and integrate the step
 loop.  Runs on the card unless the caller passes another device."""
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..bgc.ciso import CisoParams
@@ -194,6 +196,110 @@ def build_channel(dtype=torch.float64, itdm=None, jtdm=None, kdm=None,
         forcing,
         taux=torch.as_tensor(taux, dtype=dtype, device=device) * grid.iu,
         tauy=torch.as_tensor(tauy, dtype=dtype, device=device) * grid.iv)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
+
+
+def build_gridfile(grfile: str, kdm: int, baclin: float,
+                   batrop: float, expcnf: str = 'ben02clim',
+                   icfile: str = None, dtype=torch.float64,
+                   pref: float = 2000.e4, cwmod=(), arctic: bool = False,
+                   idate: int = 20000101, idate0: int = None,
+                   use_idlage: bool = False, device=None) -> Model:
+    """The grid-file experiment, as blom_tpu's build_gridfile builds it:
+    the expcnf dispatch branch of the production configurations
+    (ben02clim, ben02syn and cesm on tnx*-class grids; mod_inigeo and
+    mod_inicon, mod_rdlim.F90:137-250).
+
+    grfile: a BLOM-convention grid NetCDF or .npz (core/geoenv.py);
+    icfile: an optional WOA-style z-level T/S climatology with variables
+    t_an/s_an (k, j, i on the model grid) and depth_bnds (k, 2); without
+    it a horizontally uniform, stably stratified profile.  Forcing starts
+    at zero: the coupled cap supplies it per step (drivers/coupled.py).
+    `device` defaults to CUDA and raises when CUDA is missing."""
+    from ..core.geoenv import geoenv_file
+    from ..core.inicon import inicon_woa
+
+    device = _device(device)
+    clock = modeltime.init_timevars(expcnf, baclin, batrop,
+                                    idate, idate0 or idate)
+    grid = geoenv_file(grfile, kk=kdm, baclin=baclin, periodic_i=True,
+                       arctic=arctic, dtype=dtype, cwmod=cwmod,
+                       device=device)
+    e = eos.init_eos(pref=pref, expcnf=expcnf)
+
+    jj, ii = grid.shape
+    if icfile is not None:
+        from scipy.io import netcdf_file
+        with netcdf_file(icfile, 'r', mmap=False) as nc:
+            t_src = np.array(nc.variables['t_an'][:], np.float64)
+            s_src = np.array(nc.variables['s_an'][:], np.float64)
+            bnds = np.array(nc.variables['depth_bnds'][:], np.float64)
+        if t_src.ndim == 4:
+            t_src, s_src = t_src[0], s_src[0]
+    else:
+        zc, bnds, t_prof, s_prof = fallback_profile()
+        t_src = np.broadcast_to(t_prof[:, None, None],
+                                (len(zc), jj, ii)).copy()
+        s_src = np.broadcast_to(s_prof[:, None, None],
+                                (len(zc), jj, ii)).copy()
+    temp, saln, sigmar, phi = inicon_woa(grid, e, t_src, s_src, bnds)
+
+    state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
+                            sigmar=sigmar, dtype=dtype,
+                            ntr=1 if use_idlage else 0)
+    par = StepParams(
+        baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
+        momtum=MomtumParams(vsc2hi=.2, vsc2lo=.2, cbar=.05, cb=.002,
+                            mommth='enscon'),
+        barotp=BarotpParams(cwbdts=5.e-5, cwbdls=25., mommth='enscon'),
+        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
+        ale=make_ale_params(kdm), itriag=0 if use_idlage else -1)
+    forcing = zero_forcing(kdm, grid.shape, dtype, device)
+    return _assemble(grid, e, par, clock, state, forcing, dtype, device)
+
+
+def fallback_profile(zc=None):
+    """build_gridfile's profile where no icfile is given: numpy (zc,
+    depth_bnds, T, S) at the level centres `zc` [m] (blom_tpu's 30 levels
+    from 25 to 4000 m by default), a thermocline of 700 m and a
+    halocline of 1000 m e-folding depth."""
+    if zc is None:
+        zc = np.linspace(25., 4000., 30)
+    dz = np.gradient(zc)
+    bnds = np.stack([zc - .5 * dz, zc + .5 * dz], 1)
+    return (zc, bnds, 2. + 18. * np.exp(-zc / 700.),
+            34.2 + .8 * (1. - np.exp(-zc / 1000.)))
+
+
+def build_single_column(dtype=torch.float64, kdm=None, baclin=1800.,
+                        batrop=60., device=None) -> Model:
+    """The single-column experiment (single_column/
+    mod_single_column.F90), as blom_tpu's build_single_column builds it:
+    a 1x1 grid periodic in i and j, the analytic thermocline of
+    `configs/single_column.py`, enscon momentum at its default
+    viscosities, the ALE regrid/remap.  `device` defaults to CUDA and
+    raises when CUDA is missing."""
+    from ..configs import single_column as cfg
+
+    device = _device(device)
+    kdm = kdm or cfg.KDM
+    clock = modeltime.init_timevars('single_column', baclin, batrop,
+                                    20000101, 20000101)
+    grid = cfg.make_grid(baclin, kdm, dtype=dtype, device=device)
+    e = eos.init_eos(pref=0., expcnf='single_column')
+
+    z, temp, saln, phi = cfg.initial_profiles(kdm)
+    sigmar = eos.sig(e, torch.from_numpy(temp),
+                     torch.from_numpy(saln)).numpy()
+    state = init.init_state(grid, e, phi=phi, temp=temp, saln=saln,
+                            sigmar=sigmar, dtype=dtype)
+    par = StepParams(
+        baclin=baclin, lstep=clock.lstep, dlt=clock.dlt,
+        momtum=MomtumParams(mommth='enscon'),
+        barotp=BarotpParams(mommth='enscon'),
+        pgfmth='dynamic enthalpy', vcoord_isopyc=False,
+        ale=make_ale_params(kdm))
+    forcing = zero_forcing(kdm, grid.shape, dtype, device)
     return _assemble(grid, e, par, clock, state, forcing, dtype, device)
 
 

@@ -227,19 +227,21 @@ def init_cppm_coeffs(ip_np: np.ndarray, dx_np: np.ndarray, axis: int,
     sm4 = np.stack([cells(o) for o in (-2, -1, 0, 1)], axis=-1)
     dx4 = np.stack([dxs(o) for o in (-2, -1, 0, 1)], axis=-1)
 
-    stencil = np.zeros((nrow, ncell), np.int32)
-    hevc = np.zeros((4, nrow, ncell))
-    tmc0 = np.zeros((12, nrow, ncell))
-    tmcl = np.zeros((12, nrow, ncell))
-    tmcr = np.zeros((12, nrow, ncell))
-    for r in range(nrow):
-        for c in range(ncell):
-            st, hv, t0, tl, tr = _set_stencil_coeffs_np(sm4[r, c], dx4[r, c])
-            stencil[r, c] = st
-            hevc[:, r, c] = hv
-            tmc0[:, r, c] = t0
-            tmcl[:, r, c] = tl
-            tmcr[:, r, c] = tr
+    # each distinct (mask, spacing) stencil once: a grid of uniform
+    # spacing has a handful, and each cell takes its stencil's values
+    keys = np.concatenate([sm4.reshape(-1, 4), dx4.reshape(-1, 4)], axis=1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    per = [_set_stencil_coeffs_np(k[:4], k[4:]) for k in uniq]
+
+    def gather(i, n):
+        vals = np.stack([np.asarray(o[i], np.float64).reshape(n) for o in per],
+                        axis=1)
+        return vals[:, inv].reshape(n, nrow, ncell)
+    stencil = np.asarray([o[0] for o in per], np.int32)[inv].reshape(
+        nrow, ncell)
+    hevc, tmc0, tmcl, tmcr = (gather(1, 4), gather(2, 12), gather(3, 12),
+                              gather(4, 12))
     # slope coefficients / d2 mask on the 3-cell stencil (i-1, i, i+1)
     # (set_slope_coeffs / set_d2_mask, mod_cppm.F90:322-359)
     sm3 = np.stack([cells(o) for o in (-1, 0, 1)], axis=-1)

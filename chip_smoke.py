@@ -210,13 +210,52 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    compressed group) through build_case and run_case at 384x360x53 f32
    for 4 steps: the files tests/test_dia_groups.py expects, sst finite
    over water, the restart, run.status and the final dp CRC;
-13. the kernels summary line (with the tracer counts each kernel met and
-   its tripolar inputs) and the script's total seconds, then the device
-   line last.  It fails if a variant of a kernel launched on none of the
-   paths (fuk95, the core, the isopycnic path, the tracer paths, the
-   carbon-isotope path, the decks, the tripolar grid, the vertical
-   physics, the high-order ALE methods, the transport options, the
-   surface physics, the instrumented path, the restarts, run_case).
+13. the other configurations and the coupled cap: coupled, the cap at
+   NorESM's tnx1 shape (384x360x53 in f32, tripolar): a NetCDF grid file
+   of build_tripolar's geometry (5500 m deep, qlat from plat) and a
+   WOA-shaped initial-condition file (t_an, s_an, depth_bnds on the 33
+   standard levels to 5500 m, build_gridfile's fallback profile warmer
+   by 4 K * cos(plat)), both from blom_tpu_torch/tools/gridfiles.py,
+   under build/coupled/, build_gridfile(expcnf='cesm', arctic=True) on
+   the card, OcnCap with 20 steps an interval (an hour): data_initialize,
+   one interval of warm-up and one timed under tests/test_coupled.py's
+   imports (the shortwave scaled by max(cos(plat), 0)); gates: fields
+   finite, physical-row mass drift <= 1e-5, launches per step (CPPM 2,
+   momentum 1, its fold pre-pass 1, K1 1, K2 1), the synchronizing calls
+   of the timed interval no more than eddtra's counter, every export
+   finite over water and zero on land, So_t within the initial surface
+   range +-2 K, the two 30-level profiles 1e30 exactly in the bins below
+   the sea floor, the freezing potential >= 0; reported: the build's
+   seconds (grid read, inicon_woa), s/step, grid-points/s, the export's
+   ms and the peak memory; coupled_parity: build_gridfile(arctic=True)
+   at 32x24x6 in f64 from the same kind of files, one interval of 2
+   steps on the card against the CPU, every State field and export
+   within STEP_REL; single_column: build_single_column on the card for
+   48 steps in f64 (tests/test_configs.py's checks) and in f32 (finite,
+   the thermocline above 5 K, max |u| and the heat drift within 10x
+   blom_tpu's own f32 readings, SC_F32_REF), launches per step (CPPM 2,
+   momentum 1, K1 1, K2 1); short_period_check: check_cppm,
+   check_momtum and check_ale where an axis is shorter than their
+   stencils, exact (max |err| 0.0) in f64 and f32: the CPPM sweep in
+   each variant on periodic lines of length 1, 2 and 3 along i and j
+   and on 1x1, the momentum core in each scheme periodic in both axes
+   at (J, I) of MOMTUM_SHORT, K1 and K2 in each limiter on one column of
+   25 levels, each timed at 1x1; testsuite: the port's compset runner
+   over its whole TESTLIST on the card, every line PASS; then for each
+   of its compsets at the runner's own shape (f64, 32x16x6, the
+   tripolar grid 32x24x6) runner_parity, one step of each time-level
+   parity on the card against the CPU from the state two CPU steps
+   reach, within STEP_REL, and runner_kernels, every kernel launch of
+   that step exact against its plain version on the step's inputs;
+14. the kernels summary line (with the tracer counts each kernel met,
+   its tripolar inputs, its short-period checks and its checks on the
+   runner's inputs) and the script's
+   total seconds, then the device line last.  It fails if a variant of a
+   kernel launched on none of the paths (fuk95, the core, the isopycnic
+   path, the tracer paths, the carbon-isotope path, the decks, the
+   tripolar grid, the vertical physics, the high-order ALE methods, the
+   transport options, the surface physics, the instrumented path, the
+   restarts, run_case, the cap, the single column, the runner).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -468,10 +507,11 @@ def compare(outs, refs, dtype):
 _CPPM_COEFFS = {}
 
 
-def cppm_inputs(ax, periodic, dtype, dev, nt=NT):
+def cppm_inputs(ax, periodic, dtype, dev, nt=NT, shape=(KK, JJ, II)):
     import numpy as np
     import torch
     from blom_tpu_torch.dynamics.cppm import CppmCoeffs, init_cppm_coeffs
+    KK, JJ, II = shape
     rng = np.random.default_rng(SEED)
     ip = np.ones((JJ, II))
     ip[rng.uniform(size=(JJ, II)) < .02] = 0.
@@ -484,7 +524,7 @@ def cppm_inputs(ax, periodic, dtype, dev, nt=NT):
     dx = rng.uniform(.6, 1.5, (JJ, II))
     # the host set-up of the coefficients, in f64, once per axis and
     # periodicity; a dtype conversion rounds as building in it does
-    key = (ax, periodic)
+    key = (ax, periodic, shape)
     if key not in _CPPM_COEFFS:
         _CPPM_COEFFS[key] = init_cppm_coeffs(ip, dx, axis=ax,
                                              periodic=periodic)
@@ -558,48 +598,66 @@ CPPM_VARIANTS = (('full', 'non_oscillatory'), ('full', 'monotonic'),
                  ('partial', 'non_oscillatory'), ('partial', 'monotonic'))
 
 
-def check_cppm(dev, results):
+def check_cppm(dev, results, lines=None, exact=False,
+               label='kernel_check'):
+    """The CPPM sweep in each variant, with and without div_corr, in f64
+    and f32, against its plain version: on `lines`, (ax, periodic, shape,
+    timed) each, or by default the main path's grid on both axes and
+    periodicities, timed where the main path sweeps (i closed, j
+    periodic), then the main variant at NT_CHECK's tracer counts.  With
+    `exact` every output must equal the plain one (max |err| 0.0), else
+    be within `compare`'s tolerance.  A timed line times every variant
+    in f32 on the main grid, the main variant with div_corr elsewhere."""
+    import math
     import torch
     from blom_tpu_torch.dynamics import cppm, cppm_cuda
+    main = lines is None
+    if main:
+        lines = [(ax, periodic, (KK, JJ, II), periodic == (ax == -2))
+                 for ax in (-1, -2) for periodic in (False, True)]
     ok_all = True
     for dtype in (torch.float64, torch.float32):
-        for ax in (-1, -2):
-            for periodic in (False, True):
-                co, args, div = cppm_inputs(ax, periodic, dtype, dev)
-                for compat, lim in CPPM_VARIANTS:
-                    var = dict(compatibility=compat, limiting=lim)
-                    for d in (None, div):
-                        ref = cppm._cppm_sweep_body(*args, co, periodic, d,
-                                                    ax, **var)
-                        out = cppm_cuda.cppm_sweep_cuda(
-                            *args, co, periodic, div_corr=d, ax=ax, **var)
-                        torch.cuda.synchronize()
-                        ok, eabs, erel = compare(out, ref, dtype)
-                        rec = dict(kernel='cppm_sweep',
-                                   variant=f'{compat}/{lim}',
-                                   dtype=str(dtype)[6:], ax=ax,
-                                   periodic=periodic,
-                                   div_corr=d is not None, ok=ok,
-                                   max_abs_err=eabs, max_rel_err=erel)
-                        if dtype == torch.float32 and periodic == (ax == -2):
-                            # the main path's sweeps: fuk95 is closed in i
-                            # and periodic in j
-                            rec['ms'] = time_ms(
-                                lambda: cppm_cuda.cppm_sweep_cuda(
-                                    *args, co, periodic, div_corr=d, ax=ax,
-                                    **var))
-                            rec['plain_ms'] = time_ms(
-                                lambda: cppm._cppm_sweep_body(
-                                    *args, co, periodic, d, ax, **var),
-                                reps=5, warm=1)
-                            b, by = bound(
-                                cppm_bytes(dtype, d is not None, compat, lim,
-                                           co.stencil),
-                                cppm_ops_per_cell() * KK * JJ * II)
-                            rec['bound_ms'], rec['bound_by'] = b, by
-                        emit('kernel_check', **rec)
-                        results.append(rec)
-                        ok_all &= ok
+        for ax, periodic, shape, timed in lines:
+            co, args, div = cppm_inputs(ax, periodic, dtype, dev,
+                                        shape=shape)
+            for compat, lim in CPPM_VARIANTS:
+                var = dict(compatibility=compat, limiting=lim)
+                for d in (None, div):
+                    ref = cppm._cppm_sweep_body(*args, co, periodic, d, ax,
+                                                **var)
+                    out = cppm_cuda.cppm_sweep_cuda(
+                        *args, co, periodic, div_corr=d, ax=ax, **var)
+                    torch.cuda.synchronize()
+                    ok, eabs, erel = compare(out, ref, dtype)
+                    if exact:
+                        ok &= eabs == 0.
+                    rec = dict(kernel='cppm_sweep',
+                               variant=f'{compat}/{lim}',
+                               dtype=str(dtype)[6:], ax=ax,
+                               periodic=periodic, shape=list(shape),
+                               div_corr=d is not None, ok=ok,
+                               max_abs_err=eabs, max_rel_err=erel)
+                    if dtype == torch.float32 and timed and (
+                            main or (d is not None
+                                     and (compat, lim) == CPPM_VARIANTS[0])):
+                        rec['ms'] = time_ms(
+                            lambda: cppm_cuda.cppm_sweep_cuda(
+                                *args, co, periodic, div_corr=d, ax=ax,
+                                **var))
+                        rec['plain_ms'] = time_ms(
+                            lambda: cppm._cppm_sweep_body(
+                                *args, co, periodic, d, ax, **var),
+                            reps=5, warm=1)
+                        b, by = bound(
+                            cppm_bytes(dtype, d is not None, compat, lim,
+                                       co.stencil, shape=shape),
+                            cppm_ops_per_cell() * math.prod(shape))
+                        rec['bound_ms'], rec['bound_by'] = b, by
+                    emit(label, **rec)
+                    results.append(rec)
+                    ok_all &= ok
+    if not main:
+        return ok_all
     # the main variant at the other tracer counts of NT_CHECK, on both
     # axes with the main path's periodicity, the second sweep's div_corr
     for dtype in (torch.float64, torch.float32):
@@ -625,16 +683,18 @@ def check_cppm(dev, results):
     return ok_all
 
 
-def momtum_inputs(periodic_i, dtype, dev, arctic=False):
-    """Random land (a tenth), fields and fluxes on a grid periodic in j,
-    or with `arctic` on a tripolar one: closed in j, walled in the south,
-    the top row on the fold."""
+def momtum_inputs(periodic_i, dtype, dev, arctic=False, shape=(KK, JJ, II),
+                  water=.9):
+    """Random land (a tenth; none with water=1), fields and fluxes on a
+    grid periodic in j, or with `arctic` on a tripolar one: closed in j,
+    walled in the south, the top row on the fold."""
     import numpy as np
     import torch
     from blom_tpu_torch.core.grid import finish_grid
     from blom_tpu_torch.dynamics.momtum import Momtum2DIn, MomtumKIn
+    KK, JJ, II = shape
     rng = np.random.default_rng(SEED)
-    depths = np.where(rng.uniform(size=(JJ, II)) < .9, 200., 0.)
+    depths = np.where(rng.uniform(size=(JJ, II)) < water, 200., 0.)
     if not periodic_i:
         depths[:, 0] = depths[:, -1] = 0.
     if arctic:
@@ -685,12 +745,13 @@ def momtum_inputs(periodic_i, dtype, dev, arctic=False):
     return grid, f, d2
 
 
-def momtum_bytes(dtype):
+def momtum_bytes(dtype, shape=(KK, JJ, II)):
     """Bytes the momentum core must move: 17 (k, j, i) inputs, 12 (j, i)
     inputs and 21 grid planes read and u_new, v_new written."""
     import torch
+    kk, jj, ii = shape
     es = torch.finfo(dtype).bits // 8
-    return es * ((17 + 2) * KK * JJ * II + (12 + 21) * JJ * II)
+    return es * ((17 + 2) * kk * jj * ii + (12 + 21) * jj * ii)
 
 
 def profiler_ms(call, kernel, reps=5):
@@ -763,18 +824,28 @@ def cppm_smem():
             for t, dt in (('f32', torch.float32), ('f64', torch.float64))}
 
 
-def check_momtum(dev, results):
-    """The momentum core in each scheme, closed and periodic in i, and
-    periodic in i on a tripolar grid (the fold pre-pass, then the main
-    kernel), in f64 and f32; timed closed in i (the main path's grid)."""
+def check_momtum(dev, results, cases=None, exact=False,
+                 label='kernel_check'):
+    """The momentum core in each scheme, in f64 and f32, against its
+    plain version: on `cases`, (periodic_i, arctic, shape, water, timed)
+    each, or by default the main path's grid closed and periodic in i,
+    and periodic in i on a tripolar grid (the fold pre-pass, then the
+    main kernel), timed closed in i (the main path's grid).  With
+    `exact` every output must equal the plain one (max |err| 0.0), else
+    be within `compare`'s tolerance."""
+    import math
     import torch
     from blom_tpu_torch.dynamics import momtum, momtum_cuda
     tsfac, delt1 = 6. / 360., 360.
+    if cases is None:
+        cases = [(periodic_i, arctic, (KK, JJ, II), .9, not periodic_i)
+                 for periodic_i, arctic in ((False, False), (True, False),
+                                            (True, True))]
     ok_all = True
     for dtype in (torch.float64, torch.float32):
-        for periodic_i, arctic in ((False, False), (True, False),
-                                   (True, True)):
-            grid, f, d2 = momtum_inputs(periodic_i, dtype, dev, arctic)
+        for periodic_i, arctic, shape, water, timed in cases:
+            grid, f, d2 = momtum_inputs(periodic_i, dtype, dev, arctic,
+                                        shape=shape, water=water)
             for mommth in momtum.MOMMTHS:
                 # the main path's parameters with each scheme, plus nonzero
                 # biharmonic and background viscosities so that every term
@@ -786,23 +857,25 @@ def check_momtum(dev, results):
                                                  delt1)
                 torch.cuda.synchronize()
                 ok, eabs, erel = compare(out, ref, dtype)
+                if exact:
+                    ok &= eabs == 0.
                 rec = dict(kernel='momtum_uv', variant=mommth,
                            dtype=str(dtype)[6:], periodic_i=periodic_i,
-                           arctic=arctic, ok=ok, max_abs_err=eabs,
-                           max_rel_err=erel)
-                if dtype == torch.float32 and not periodic_i:
+                           arctic=arctic, shape=list(shape), ok=ok,
+                           max_abs_err=eabs, max_rel_err=erel)
+                if dtype == torch.float32 and timed:
                     def call():
                         return momtum_cuda.momtum_uv_cuda(grid, par, f, d2,
                                                           tsfac, delt1)
                     rec['ms'] = time_ms(call)
                     rec['plain_ms'] = time_ms(lambda: momtum._uv_body(
                         grid, par, f, d2, tsfac, delt1), reps=5, warm=1)
-                    b, by = bound(momtum_bytes(dtype),
-                                  MOMTUM_OPS_PER_POINT * KK * JJ * II)
+                    b, by = bound(momtum_bytes(dtype, shape),
+                                  MOMTUM_OPS_PER_POINT * math.prod(shape))
                     rec['bound_ms'], rec['bound_by'] = b, by
                     rec['profiler_ms'] = profiler_ms(call,
                                                      'momtum_uv_kernel')
-                emit('kernel_check', **rec)
+                emit(label, **rec)
                 results.append(rec)
                 ok_all &= ok
     return ok_all
@@ -847,43 +920,60 @@ def ale_inputs(dtype, dev, ntr=0, shape=(KK, JJ, II)):
 # parabola limit where they apply, the search for the transition
 # interface, the isopycnal nudge) are not counted, so these counts and
 # the bounds from them are lower bounds.
-def ale_regrid_ops():
-    return (KK + 1) * (90 + 2 * 7) + KK * (2 * 20 + 40 + 10)
+def ale_regrid_ops(kk=KK):
+    return (kk + 1) * (90 + 2 * 7) + kk * (2 * 20 + 40 + 10)
 
 
-def ale_remap_ops(ntr):
-    per_field = (KK + 1) * 7 + KK * (20 + 6) + (KK + 1) * 15
-    return 3 * (KK + 1) * 90 + (2 + ntr + 2) * per_field
+def ale_remap_ops(ntr, kk=KK):
+    per_field = (kk + 1) * 7 + kk * (20 + 6) + (kk + 1) * 15
+    return 3 * (kk + 1) * 90 + (2 + ntr + 2) * per_field
 
 
-def ale_bytes(dtype, kind, ntr=0):
+def ale_bytes(dtype, kind, ntr=0, shape=(KK, JJ, II)):
     import torch
+    kk, jj, ii = shape
     es = torch.finfo(dtype).bits // 8
     if kind == 'regrid':      # p_src, temp, saln, sigmar -> p_dst, sfac
-        levels = 3 * (KK + 1) + 3 * KK
+        levels = 3 * (kk + 1) + 3 * kk
     else:                     # 6 interface fields, tracers + u, v in/out
-        levels = 6 * (KK + 1) + 2 * (2 + ntr + 2) * KK
-    return es * levels * JJ * II
+        levels = 6 * (kk + 1) + 2 * (2 + ntr + 2) * kk
+    return es * levels * jj * ii
 
 
-def check_ale(dev, results):
+def check_ale(dev, results, shape=None, exact=False,
+              label='kernel_check'):
+    """K1 and K2 against their plain versions in f64 and f32, on `shape`
+    (each limiter for both groups, no tracers) or by default on the main
+    path's grid: K2 at NTR_CHECK's tracer counts with each limiter for
+    both groups and deck B's pair, K1 in each limiter, then
+    check_ale_deep; timed in f32 with no tracers and one limiter for both
+    groups (on `shape` the non-oscillatory one).  With `exact` every
+    output must equal the plain one (max |err| 0.0), else be within
+    `compare`'s tolerance."""
     import torch
     from blom_tpu_torch.core import eos
     from blom_tpu_torch.dynamics import ale, ale_cuda
     e = eos.init_eos(pref=0., expcnf='fuk95')
     delt1 = 360.
+    main = shape is None
+    shape = (KK, JJ, II) if main else tuple(shape)
+    kk, jj, ii = shape
     # (tracer_limiting, velocity_limiting) of the K2 checks: each limiter
-    # for both groups, and the pair of the channel deck B
-    k2_pairs = [(lim, lim) for lim in ale.LIMITERS] + [DECKS['B'][3:]]
+    # for both groups, and on the main grid the pair of the channel deck B
+    k2_pairs = [(lim, lim) for lim in ale.LIMITERS] + (
+        [DECKS['B'][3:]] if main else [])
     ok_all = True
     for dtype in (torch.float64, torch.float32):
-        for ntr in NTR_CHECK:
-            x = ale_inputs(dtype, dev, ntr)
+        for ntr in (NTR_CHECK if main else (0,)):
+            x = ale_inputs(dtype, dev, ntr, shape=shape)
             pairs = k2_pairs if ntr != NTR_MANY else [
                 ('non_oscillatory', 'non_oscillatory')]
             for tlim, vlim in pairs:
-                par = ale.make_ale_params(KK)._replace(
+                par = ale.make_ale_params(kk)._replace(
                     tracer_limiting=tlim, velocity_limiting=vlim)
+                timed = (dtype == torch.float32 and ntr == 0
+                         and tlim == vlim
+                         and (main or tlim == 'non_oscillatory'))
                 rargs = (e, par, x['p'], x['temp'], x['saln'], x['sigmar'],
                          delt1)
                 ref = ale.regrid_plain(*rargs)
@@ -891,19 +981,22 @@ def check_ale(dev, results):
                     out = ale_cuda.regrid_cuda(*rargs)
                     torch.cuda.synchronize()
                     ok, eabs, erel = compare(out, ref, dtype)
+                    if exact:
+                        ok &= eabs == 0.
                     rec = dict(kernel='ale_regrid', variant=tlim,
-                               dtype=str(dtype)[6:], ok=ok,
-                               max_abs_err=eabs, max_rel_err=erel)
-                    if dtype == torch.float32:
+                               dtype=str(dtype)[6:], shape=list(shape),
+                               ok=ok, max_abs_err=eabs, max_rel_err=erel)
+                    if timed:
                         rec['ms'] = time_ms(
                             lambda: ale_cuda.regrid_cuda(*rargs))
                         rec['plain_ms'] = time_ms(
                             lambda: ale.regrid_plain(*rargs), reps=5,
                             warm=1)
-                        b, by = bound(ale_bytes(dtype, 'regrid'),
-                                      ale_regrid_ops() * JJ * II)
+                        b, by = bound(ale_bytes(dtype, 'regrid',
+                                                shape=shape),
+                                      ale_regrid_ops(kk) * jj * ii)
                         rec['bound_ms'], rec['bound_by'] = b, by
-                    emit('kernel_check', **rec)
+                    emit(label, **rec)
                     results.append(rec)
                     ok_all &= ok
                 p_dst = ref[0]
@@ -916,22 +1009,25 @@ def check_ale(dev, results):
                 ok, eabs, erel = compare(
                     list(mout[0]) + [mout[1], mout[2]],
                     list(mref[0]) + [mref[1], mref[2]], dtype)
+                if exact:
+                    ok &= eabs == 0.
                 rec = dict(kernel='ale_remap', variant=f'{tlim}/{vlim}',
-                           dtype=str(dtype)[6:], ntr=ntr, ok=ok,
-                           max_abs_err=eabs, max_rel_err=erel)
-                if dtype == torch.float32 and ntr == 0 and tlim == vlim:
+                           dtype=str(dtype)[6:], ntr=ntr, shape=list(shape),
+                           ok=ok, max_abs_err=eabs, max_rel_err=erel)
+                if timed:
                     # the main path's configuration: fuk95 and the
                     # channel carry no tracers
                     rec['ms'] = time_ms(lambda: ale_cuda.remap_cuda(*margs))
                     rec['plain_ms'] = time_ms(
                         lambda: ale.remap_plain(*margs), reps=5, warm=1)
-                    b, by = bound(ale_bytes(dtype, 'remap', ntr),
-                                  ale_remap_ops(ntr) * JJ * II)
+                    b, by = bound(ale_bytes(dtype, 'remap', ntr,
+                                            shape=shape),
+                                  ale_remap_ops(ntr, kk) * jj * ii)
                     rec['bound_ms'], rec['bound_by'] = b, by
-                emit('kernel_check', **rec)
+                emit(label, **rec)
                 results.append(rec)
                 ok_all &= ok
-    return ok_all & check_ale_deep(dev, results)
+    return ok_all & (check_ale_deep(dev, results) if main else True)
 
 
 def check_ale_deep(dev, results):
@@ -1336,7 +1432,7 @@ def run_isopyc(dev, paths, syncs):
 
 
 def capture_kernel_inputs(model, s, delt1):
-    """The inputs of every CPPM sweep, momentum and ALE K2 call of one
+    """The inputs of every CPPM sweep, momentum, ALE K1 and K2 call of one
     step from state `s` (parity m, n = 0, 1), cloned as each wrapper
     receives them."""
     import dataclasses
@@ -1348,9 +1444,11 @@ def capture_kernel_inputs(model, s, delt1):
             return [clone(y) for y in x]
         return x.clone() if hasattr(x, 'clone') else x
 
-    calls = {'cppm_sweep': [], 'momtum_uv': [], 'ale_remap': []}
+    calls = {'cppm_sweep': [], 'momtum_uv': [], 'ale_regrid': [],
+             'ale_remap': []}
     wrappers = {'cppm_sweep': (cppm_cuda, 'cppm_sweep_cuda'),
                 'momtum_uv': (momtum_cuda, 'momtum_uv_cuda'),
+                'ale_regrid': (ale_cuda, 'regrid_cuda'),
                 'ale_remap': (ale_cuda, 'remap_cuda')}
     orig = {k: getattr(mod, fn) for k, (mod, fn) in wrappers.items()}
 
@@ -3092,18 +3190,21 @@ def dia_groups(model):
 
 def count_syncs(fn):
     """(fn(), the synchronizing CUDA calls it made), counted as the
-    warnings of torch.cuda.set_sync_debug_mode('warn')."""
+    warnings of torch.cuda.set_sync_debug_mode('warn').  The first time a
+    process sets that mode, the setter itself warns once; that warning is
+    not fn's and is not counted."""
     import warnings
     import torch
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
+        n0 = len(caught)
         try:
             out = fn()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode('default')
-    return out, sum('synchroniz' in str(w.message) for w in caught)
+    return out, sum('synchroniz' in str(w.message) for w in caught[n0:])
 
 
 def finite_over_water(group, wet):
@@ -3449,7 +3550,421 @@ def run_run_case(dev, paths):
     return ok
 
 
-def kernel_summary(results, paths, tracer_results, tripolar_results):
+# ------------------------------ the other configurations and the cap
+
+# The grid and initial-condition files come from
+# blom_tpu_torch/tools/gridfiles.py: build_tripolar's geometry with the
+# climatology's 5500 m floor over all water (gridfiles.ABYSS_DEPTH), as
+# a floor from 100 to 5500 m leaves massless bottom layers where the ALE
+# step turns NaN (ROADMAP section 3).
+NSTEP_IN_CPL = 20       # one hour of 180 s steps
+COUPLED_DTYPE = 'float32'
+SO_T_MARGIN = 2.        # K around the initial surface range
+PARITY_COUPLED = dict(itdm=32, jtdm=24, kdm=6)
+# K of warming by cos(plat) in the cap's climatology, timed and parity
+# runs: in a horizontally uniform ocean the pressure gradients and slopes
+# are rounding alone, and eddtra's limiter never loops
+COUPLED_DT_LAT = 4.
+NSTEPS_SC = 48          # a day at the single column's 1800 s steps
+# blom_tpu's own single column after a day on the CPU: in f64 (as
+# tests/test_configs.py gates it) and in f32 with 64-bit types off, as on
+# a TPU: max |u| and the relative heat drift
+SC_F32_REF = dict(max_abs_u=6.9e-5, heat_drift=4.1e-7)
+SC_F32_FACTOR = 10.
+SC_KK = 25
+# the kernels where an axis is shorter than their stencils, each exact
+# against its plain version: the CPPM sweep on periodic lines of length
+# 1, 2 and 3 along i and j and on the single column, timed there
+# (check_cppm's lines); the momentum core periodic in both axes, all
+# water, at (J, I) of MOMTUM_SHORT, timed at 1x1 (check_momtum's
+# cases); K1 and K2 on the single column's one column
+SHORT_PERIODS = (1, 2, 3)
+SHORT_CPPM_LINES = tuple(
+    (ax, True, (SC_KK, 10, n) if ax == -1 else (SC_KK, n, 13), False)
+    for ax in (-1, -2) for n in SHORT_PERIODS) + tuple(
+    (ax, True, (SC_KK, 1, 1), True) for ax in (-1, -2))
+MOMTUM_SHORT = ((1, 1), (1, 40), (17, 1), (2, 2))
+SHORT_MOMTUM_CASES = tuple((True, False, (SC_KK, jj, ii), 1.,
+                            (jj, ii) == (1, 1)) for jj, ii in MOMTUM_SHORT)
+# the runner's compsets are held card against CPU from the state the CPU
+# reaches in this many steps (the tripolar fold rows carry flow)
+RUNNER_PARITY_FROM = 2
+
+
+def build_coupled(dev, dtype, grfile, icfile, kdm):
+    """build_gridfile as the cesm compset on the tripolar grid file:
+    (model, {'grid_read': s, 'inicon_woa': s, 'total': s})."""
+    import torch
+    from blom_tpu_torch.core import geoenv, inicon
+    from blom_tpu_torch.drivers import standalone
+    seconds = {}
+
+    def timed(mod, name):
+        orig = getattr(mod, name)
+
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            seconds[name] = time.perf_counter() - t0
+            return out
+        return orig, fn
+    saved = []
+    for mod, name, key in ((geoenv, 'geoenv_file', 'grid_read'),
+                           (inicon, 'inicon_woa', 'inicon_woa')):
+        orig, fn = timed(mod, name)
+        saved.append((mod, name, orig))
+        setattr(mod, name, fn)
+    t0 = time.perf_counter()
+    try:
+        model = standalone.build_gridfile(
+            grfile, kdm=kdm, baclin=180., batrop=6., expcnf='cesm',
+            icfile=icfile, dtype=dtype, arctic=True, device=dev)
+        if str(dev) != 'cpu':
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    return model, {'grid_read': seconds['geoenv_file'],
+                   'inicon_woa': seconds['inicon_woa'],
+                   'total': time.perf_counter() - t0}
+
+
+PROFILES = ('So_t_depth', 'So_s_depth')
+
+
+def export_gates(model, ex, n, so_t_range):
+    """{gate: ok} of an export of time level n: every 2-D field finite over
+    water and zero on land, So_t within so_t_range, each profile 1e30
+    exactly in the bins below the sea floor and finite elsewhere, the
+    freezing potential >= 0."""
+    import torch
+    from blom_tpu_torch.core.constants import onem
+    from blom_tpu_torch.core.state import cumulative_p
+    from blom_tpu_torch.drivers import coupled
+    g = model.grid
+    wet = g.ip > 0
+    flat = {k: v for k, v in ex._asdict().items()
+            if k not in PROFILES and k != 'So_omask'}
+    p_i = cumulative_p(model.state.dp[n]) * g.ip
+    lo = coupled._export_bounds(p_i.dtype, p_i.device)[:, 0] * onem
+    below = lo[:, None, None] >= p_i[-1][None]
+    spval = torch.tensor(1e30, dtype=p_i.dtype)
+    prof = {}
+    for k in PROFILES:
+        a = getattr(ex, k)
+        prof[k] = (bool(torch.equal(a == spval.to(a.device), below))
+                   and bool(torch.isfinite(a[~below]).all()))
+    so_t = ex.So_t[wet]
+    return {'finite_over_water': all(bool(torch.isfinite(v[wet]).all())
+                                     for v in flat.values()),
+            'zero_on_land': all(bool((v[~wet] == 0.).all())
+                                for v in flat.values()),
+            'So_t_range': bool(((so_t >= so_t_range[0])
+                                & (so_t <= so_t_range[1])).all()),
+            'profiles_spval_below_floor': all(prof.values()),
+            'frzpot_nonneg': bool((ex.Fioo_q >= 0.).all())}
+
+
+def run_coupled(dev, paths, syncs):
+    """The coupled cap at the NorESM tnx1 shape (384x360x53, tripolar) in
+    COUPLED_DTYPE: the grid and initial-condition files written by
+    gridfiles.coupled_files, the climatology warmer by COUPLED_DT_LAT *
+    cos(plat), build_gridfile(expcnf='cesm', arctic=True), OcnCap with
+    NSTEP_IN_CPL steps an interval, data_initialize, one interval of
+    warm-up and one timed, under gridfiles.coupled_imports.  Gates:
+    fields finite,
+    physical-row mass drift <= 1e-5, launches per step as
+    expected_launches(arctic=True), the synchronizing calls of the timed
+    interval (set_sync_debug_mode) no more than eddtra's counter, each
+    export's export_gates; reported: the build's seconds (grid read,
+    inicon_woa), s/step, grid-points/s, export ms, peak memory."""
+    import torch
+    from blom_tpu_torch.drivers import coupled
+    from blom_tpu_torch.tools import gridfiles
+    dtype = getattr(torch, COUPLED_DTYPE)
+    t0 = time.perf_counter()
+    grfile, icfile = gridfiles.coupled_files(
+        scratch_dir('coupled'), II, JJ, KK, device=dev,
+        dt_lat=COUPLED_DT_LAT)
+    files_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, build_s = build_coupled(dev, dtype, grfile, icfile, KK)
+    mass0 = physical_mass(model, model.state.dp[1])
+    cap = coupled.OcnCap(model, NSTEP_IN_CPL)
+    ex0 = cap.data_initialize()
+    so_t = ex0.So_t[model.grid.ip > 0]
+    so_t_range = (float(so_t.min()) - SO_T_MARGIN,
+                  float(so_t.max()) + SO_T_MARGIN)
+    gates = {f'init/{k}': v for k, v in
+             export_gates(model, ex0, 1, so_t_range).items()}
+    imp = gridfiles.coupled_imports(model)
+    cap.advance(imp)                   # warm-up interval
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    ex, nsync = count_syncs(lambda: cap.advance(imp))
+    wall = time.perf_counter() - t0
+    counts = counters()
+    eddtra_syncs = counts.pop('host_syncs')
+    paths['coupled'] = counts
+    syncs['coupled'] = eddtra_syncs / NSTEP_IN_CPL
+    s = model.state
+    n = 1 - ((cap.nstep - 1) % 2)
+    gates.update({k: v for k, v in
+                  export_gates(model, ex, n, so_t_range).items()})
+    finite = all(bool(torch.isfinite(getattr(s, f)).all())
+                 for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
+    drift = (physical_mass(model, s.dp[n]) - mass0) / mass0
+    gates.update(finite=finite, mass=abs(drift) <= 1e-5,
+                 launches=launches_ok(counts, model.par, NSTEP_IN_CPL,
+                                      arctic=True),
+                 host_syncs=nsync <= eddtra_syncs)
+    export_ms = time_ms(lambda: coupled.ocn_export(
+        model.grid, model.e, s, n, cap.frzpot, model.par.baclin), reps=5,
+        warm=1)
+    ok = all(gates.values())
+    emit('coupled', shape=[KK, JJ, II], dtype=COUPLED_DTYPE, ok=ok,
+         gates=gates, nstep_in_cpl=NSTEP_IN_CPL, intervals=[1, 1],
+         files_seconds=files_s, build_seconds=build_s,
+         rel_physical_mass_drift=drift,
+         so_t_range=so_t_range,
+         so_t=[float(ex.So_t[model.grid.ip > 0].min()),
+               float(ex.So_t.max())],
+         max_abs_u=float(s.u.abs().max()),
+         max_frzpot=float(cap.frzpot.max()), launches=counts,
+         host_syncs_per_step=eddtra_syncs / NSTEP_IN_CPL,
+         sync_debug_calls=nsync,
+         seconds_per_step=wall / NSTEP_IN_CPL,
+         gridpoints_per_s=II * JJ * KK * NSTEP_IN_CPL / wall,
+         export_ms=export_ms,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    return ok
+
+
+def run_coupled_parity(dev):
+    """build_gridfile(arctic=True) at PARITY_COUPLED in f64 on the card
+    and on the CPU from the same files (the climatology warmer by
+    COUPLED_DT_LAT * cos(plat)), one OcnCap interval of 2 steps: every
+    State field and every export within STEP_REL."""
+    import dataclasses
+    import torch
+    from blom_tpu_torch.drivers import coupled
+    from blom_tpu_torch.tools import gridfiles
+    size = PARITY_COUPLED
+    grfile, icfile = gridfiles.coupled_files(
+        scratch_dir('coupled_parity'), size['itdm'], size['jtdm'],
+        size['kdm'], dt_lat=COUPLED_DT_LAT)
+    out = {}
+    for d in ('cpu', dev):
+        model = build_coupled(d, torch.float64, grfile, icfile,
+                              size['kdm'])[0]
+        cap = coupled.OcnCap(model, 2)
+        ex = cap.advance(gridfiles.coupled_imports(model))
+        out[d] = (model.state, ex)
+    fields = [f.name for f in dataclasses.fields(out['cpu'][0])
+              if getattr(out['cpu'][0], f.name).numel()]
+    state = worst_field(out['cpu'][0], out[dev][0], fields)
+    exports = worst_field(out['cpu'][1], out[dev][1],
+                          [k for k, v in out['cpu'][1]._asdict().items()
+                           if v is not None])
+    ok = state[1] <= STEP_REL and exports[1] <= STEP_REL
+    emit('coupled_parity', ok=ok, tolerance=STEP_REL, size=size,
+         steps=2, worst_state=state, worst_export=exports)
+    return ok
+
+
+def run_single_column(dev, paths, results):
+    """The single column (1x1x25, periodic in i and j) through
+    build_single_column on the card for NSTEPS_SC steps in f64 and in
+    f32.  f64: tests/test_configs.py's checks as written; f32: finite,
+    the thermocline above 5 K, max |u| and the heat drift within
+    SC_F32_FACTOR times blom_tpu's own f32 readings (SC_F32_REF).  Both:
+    launches per step (CPPM 2, momentum 1, K1 1, K2 1); then the
+    kernels' checks where an axis is shorter than their stencils
+    (SHORT_CPPM_LINES, SHORT_MOMTUM_CASES, K1 and K2 on one column of
+    SC_KK levels), exact, into `results`."""
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    ok_all = True
+    for dt in ('float64', 'float32'):
+        dtype = getattr(torch, dt)
+        model = standalone.build_single_column(dtype=dtype, device=dev)
+        s0 = model.state
+        zero_counters()
+        t0 = time.perf_counter()
+        s, _ = standalone.run(model, NSTEPS_SC)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters()
+        counts.pop('host_syncs')
+        paths[f'single_column_{dt}'] = counts
+        t = s.temp[1][:, 0, 0].double()
+        wet = s.dp[1][:, 0, 0] > 1.
+        h0 = float((s0.temp[1].double() * s0.dp[1].double()).sum())
+        h1 = float((s.temp[1].double() * s.dp[1].double()).sum())
+        drift = abs(h1 - h0) / abs(h0)
+        thermo = float(t[wet][0] - t[wet][-1])
+        max_u = float(s.u.abs().max())
+        gates = dict(
+            pb0=float(s0.pb[0][0, 0]) > 0.,
+            finite=all(bool(torch.isfinite(getattr(s, f)).all())
+                       for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb')),
+            thermocline=thermo > 5.,
+            launches=launches_ok(counts, model.par, NSTEPS_SC))
+        if dt == 'float64':
+            gates.update(max_abs_u=max_u < 1e-6, heat=drift < 1e-6)
+        else:
+            gates.update(
+                max_abs_u=max_u <= SC_F32_FACTOR * SC_F32_REF['max_abs_u'],
+                heat=drift <= SC_F32_FACTOR * SC_F32_REF['heat_drift'])
+        ok = all(gates.values())
+        emit('single_column', dtype=dt, shape=[SC_KK, 1, 1],
+             steps=NSTEPS_SC, ok=ok, gates=gates, thermocline_K=thermo,
+             max_abs_u=max_u, rel_heat_drift=drift, launches=counts,
+             seconds_per_step=wall / NSTEPS_SC)
+        ok_all &= ok
+    label = 'short_period_check'
+    ok_all &= check_cppm(dev, results, SHORT_CPPM_LINES, exact=True,
+                         label=label)
+    ok_all &= check_momtum(dev, results, SHORT_MOMTUM_CASES, exact=True,
+                           label=label)
+    ok_all &= check_ale(dev, results, (SC_KK, 1, 1), exact=True,
+                        label=label)
+    return ok_all
+
+
+def run_testsuite(dev, paths, results):
+    """The port's compset runner (blom_tpu_torch/tools/testsuite.py) over
+    its whole TESTLIST on the card: every line must read PASS, and each
+    kernel the compsets run must launch.  Then run_runner_checks at the
+    runner's own shapes."""
+    from blom_tpu_torch.tools import testsuite
+    zero_counters()
+    t0 = time.perf_counter()
+    lines = {}
+    for name, compset, cat in testsuite.TESTLIST:
+        t1 = time.perf_counter()
+        res = (testsuite.ers(compset) if cat == 'restart'
+               else testsuite.sms(compset))
+        lines[f'{name}.{compset}'] = [res, time.perf_counter() - t1]
+    counts = counters()
+    counts.pop('host_syncs')
+    paths['testsuite'] = counts
+    launched = {k: sum(counts[k].values()) > 0 for k in
+                ('cppm_sweep', 'momtum_uv', 'momtum_fold', 'ale_regrid',
+                 'ale_remap')}
+    ok = all(r.startswith('PASS') for r, _ in lines.values()) \
+        and all(launched.values())
+    emit('testsuite', ok=ok, lines=lines, launched=launched,
+         seconds=time.perf_counter() - t0)
+    return ok & run_runner_checks(dev, results)
+
+
+def run_runner_checks(dev, results):
+    """Each compset of the runner's TESTLIST at its own shape and dtype
+    (testsuite.build: f64, DEFAULT_GRID, the tripolar grid 32x24x6), from
+    the state the CPU reaches in RUNNER_PARITY_FROM steps:
+    `runner_parity`, one step of each time-level parity on the card
+    against the CPU, every State field of PARITY_FIELDS (the tracers one
+    by one) within STEP_REL; `runner_kernels`, each kernel that step
+    launches on the card (check_step_kernels), exact against its plain
+    version on the inputs the step gives it."""
+    import dataclasses
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.tools import testsuite
+    ok_all = True
+    for compset in dict.fromkeys(c for _, c, _ in testsuite.TESTLIST):
+        t0 = time.perf_counter()
+        cpu = testsuite.build(compset, device='cpu')
+        s, _ = standalone.run(cpu, RUNNER_PARITY_FROM)
+        card = testsuite.build(compset, device=dev)
+        card.dfl = type(cpu.dfl)(**{f.name: getattr(cpu.dfl, f.name).to(dev)
+                                    for f in dataclasses.fields(cpu.dfl)})
+        models = {'cpu': dataclasses.replace(cpu, state=s),
+                  dev: dataclasses.replace(card, state=state_to(s, dev))}
+        fields = PARITY_FIELDS + (('trc',) if s.trc.numel() else ())
+        one_step = one_step_parity(models, dev, fields)
+        ok = all(r <= STEP_REL for _, r in one_step.values())
+        emit('runner_parity', compset=compset, ok=ok, tolerance=STEP_REL,
+             shape=list(s.dp.shape[1:]), from_step=RUNNER_PARITY_FROM,
+             one_step=one_step, seconds=time.perf_counter() - t0)
+        ok_all &= ok
+        ok_all &= check_step_kernels(models[dev], models[dev].state,
+                                     card.clock.delt1, results, compset)
+    return ok_all
+
+
+def _flat(out):
+    """The tensors of a kernel's output, its lists flattened."""
+    flat = []
+    for o in out:
+        flat.extend(o if isinstance(o, (list, tuple)) else [o])
+    return flat
+
+
+def check_step_kernels(model, s, delt1, results, path):
+    """Each kernel launch of one step from state `s` (parity m, n = 0, 1;
+    capture_kernel_inputs): the CPPM sweeps, the momentum core (with its
+    fold pre-pass on a tripolar grid), K1 and K2, each on the inputs the
+    step gives it, against its plain version: max |err| 0.0 and finite.
+    The step must launch each of them as expected_launches says."""
+    import torch
+    from blom_tpu_torch.dynamics import (ale, ale_cuda, cppm, cppm_cuda,
+                                         momtum, momtum_cuda)
+    kernel = {'cppm_sweep': cppm_cuda.cppm_sweep_cuda,
+              'momtum_uv': momtum_cuda.momtum_uv_cuda,
+              'ale_regrid': ale_cuda.regrid_cuda,
+              'ale_remap': ale_cuda.remap_cuda}
+
+    def plain(name, a, kw):
+        if name == 'cppm_sweep':
+            return cppm._cppm_sweep_body(
+                *a, kw.get('div_corr'), kw['ax'], kw['compatibility'],
+                kw['limiting'])
+        return {'momtum_uv': momtum._uv_body,
+                'ale_regrid': ale.regrid_plain,
+                'ale_remap': ale.remap_plain}[name](*a)
+
+    def describe(name, a, kw):
+        if name == 'cppm_sweep':
+            return (dict(ax=kw['ax'], variant=f"{kw['compatibility']}/"
+                                              f"{kw['limiting']}"),
+                    a[0].shape)
+        if name == 'momtum_uv':
+            return dict(variant=a[1].mommth, arctic=a[0].arctic), \
+                a[2].dp_m.shape
+        if name == 'ale_regrid':
+            return dict(variant=a[1].tracer_limiting), a[3].shape
+        return (dict(variant=f'{a[0].tracer_limiting}/'
+                             f'{a[0].velocity_limiting}',
+                     ntr=len(a[2]) - 2), a[2][0].shape)
+
+    calls = capture_kernel_inputs(model, s, delt1)
+    expect = expected_launches(model.par, arctic=model.grid.arctic)
+    ok_all = (all(len(calls[k]) == sum(expect[k].values()) for k in calls)
+              and len(calls['cppm_sweep']) > 0
+              and len(calls['momtum_uv']) > 0)
+    for name, cl in calls.items():
+        for a, kw in cl:
+            out = _flat(kernel[name](*a, **kw))
+            ref = _flat(plain(name, a, kw))
+            torch.cuda.synchronize()
+            err = max((float((o - r).abs().max()) for o, r in zip(out, ref)
+                       if r.numel()), default=0.)
+            info, shape = describe(name, a, kw)
+            rec = dict(kernel=name, path=path, shape=list(shape),
+                       dtype=str(out[0].dtype)[6:], max_abs_err=err,
+                       ok=err == 0. and len(out) == len(ref) and all(
+                           bool(torch.isfinite(o).all()) for o in out),
+                       **info)
+            emit('runner_kernels', **rec)
+            results.append(rec)
+            ok_all &= rec['ok']
+    return ok_all
+
+
+def kernel_summary(results, paths, tracer_results, tripolar_results,
+                   short_results=(), runner_results=()):
     """The kernels line: one entry per kernel, with its variants.  A
     kernel's `launches` is the sum of its wrapper's counts on every path.
     A variant's `launches` are per path.  K2's variants are its three
@@ -3462,8 +3977,11 @@ def kernel_summary(results, paths, tracer_results, tripolar_results):
     count they carried in its run ({count: launches}, observe_carried),
     and the tracer paths' own inputs with their times
     (tracer_results).  `tripolar` holds the kernel's checks and times on
-    the tripolar path's inputs (tripolar_results); the momentum core's
-    entry also gives its fold pre-pass's launches per path."""
+    the tripolar path's inputs (tripolar_results); `short_periods` its
+    checks where an axis is shorter than its stencil (short_results);
+    `runner` its checks on the inputs of the runner's compsets
+    (runner_results); the momentum core's entry also gives its fold
+    pre-pass's launches per path."""
     from blom_tpu_torch.dynamics.ale import LIMITERS
     from blom_tpu_torch.dynamics.momtum import MOMMTHS
     out = []
@@ -3529,6 +4047,23 @@ def kernel_summary(results, paths, tracer_results, tripolar_results):
                 'ax', 'shape', 'variant', 'ok', 'f32_max_abs_err',
                 'f64_max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'profiler_ms', 'fold_profiler_ms') if k in r} for r in trip]
+        short = [r for r in short_results if r['kernel'] == name]
+        if short:
+            entry['short_periods'] = {
+                'max_abs_err': max(r['max_abs_err'] for r in short),
+                'checks': len(short),
+                'shapes': sorted({tuple(r['shape']) for r in short}),
+                'timed_1x1': [{k: r[k] for k in (
+                    'variant', 'dtype', 'shape', 'ax', 'ms', 'plain_ms',
+                    'bound_ms', 'bound_by') if k in r}
+                    for r in short if 'ms' in r]}
+        runner = [r for r in runner_results if r['kernel'] == name]
+        if runner:
+            entry['runner'] = {
+                'max_abs_err': max(r['max_abs_err'] for r in runner),
+                'checks': len(runner),
+                'paths': sorted({r['path'] for r in runner}),
+                'shapes': sorted({tuple(r['shape']) for r in runner})}
         if name == 'momtum_uv':
             entry['fold_prepass_launches'] = {
                 p: c['momtum_fold'] for p, c in paths.items()
@@ -3624,9 +4159,15 @@ def main():
     ok &= run_dia_parity(dev)
     ok &= run_restart(dev, paths, models)
     ok &= run_run_case(dev, paths)
+    short_results, runner_results = [], []
+    ok &= run_coupled(dev, paths, syncs)
+    ok &= run_coupled_parity(dev)
+    ok &= run_single_column(dev, paths, short_results)
+    ok &= run_testsuite(dev, paths, runner_results)
 
     kernels = kernel_summary(results, paths, tracer_results,
-                             tripolar_results)
+                             tripolar_results, short_results,
+                             runner_results)
     print(json.dumps({'kernels': kernels}), flush=True)
     emit('total', seconds=time.perf_counter() - t_start)
     unlaunched = [f"{k['name']}:{v['name']}" for k in kernels

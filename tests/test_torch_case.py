@@ -28,8 +28,9 @@ CPPM) are written to files in f64 and read by both packages:
 - a fuk95 deck with &VCOORD VCOORD_TYPE = 'isopyc_bulkml' builds the
   isopycnic fuk95 through both packages' build_case, with the same
   parameters and (to rounding) the same initial state;
-- a &DIAPHY group gives blom_tpu's dia_groups; experiments other than
-  fuk95 and channel raise."""
+- a &DIAPHY group gives blom_tpu's dia_groups; the other experiments
+  (single_column, noforcing, ben02clim, ben02syn, cesm) build as
+  blom_tpu builds them."""
 
 import dataclasses
 
@@ -315,11 +316,37 @@ def test_diaphy_matches_blom_tpu(tmp_path):
 
 
 @pytest.mark.parametrize('expcnf', ['single_column', 'noforcing',
-                                    'ben02clim'])
-def test_unported_expcnf_raises(tmp_path, expcnf):
-    path = _deck(tmp_path, 'C', **{"'channel'": f"'{expcnf}'"})
-    with pytest.raises(NotImplementedError, match=expcnf):
-        tcase.build_case(path, device='cpu')
+                                    'ben02clim', 'ben02syn', 'cesm'])
+def test_expcnf_matches_blom_tpu(tmp_path, expcnf):
+    """Deck C as each of the other experiments of blom_tpu's dispatch:
+    the single column (noforcing builds it too, as in blom_tpu) and the
+    grid-file configurations from a GRFILE written by
+    gridfiles.write_grid_file (the fuk95 geometry at 16x8, 4500 m deep,
+    KDM 6; no ICFILE, so build_gridfile's fallback profile): the
+    grid, CPPM coefficients, clock, EOS and parameters equal blom_tpu's,
+    the state within 1e-12."""
+    from test_torch_gridfile import _check_build, _fuk95_file
+    subs = {"'channel'": f"'{expcnf}'"}
+    if expcnf in ('ben02clim', 'ben02syn', 'cesm'):
+        grfile = _fuk95_file(tmp_path, depth=4500.)
+        subs['  DTYPE'] = (f"  GRFILE   = '{grfile}',\n"
+                           "  KDM      = 6,\n  DTYPE")
+    path = _deck(tmp_path, 'C', **subs)
+    jm, jcfg = jcase.build_case(path)
+    tm, tcfg = tcase.build_case(path, device='cpu')
+    assert tcfg.expcnf == jcfg.expcnf == expcnf
+    _check_build(jm, tm)
+    assert tm.par.momtum.mommth == DECKS['C'][0]
+    assert tm.grid.shape == ((1, 1) if expcnf in ('single_column',
+                                                  'noforcing') else (8, 16))
+
+
+def test_gridfile_deck_needs_grfile(tmp_path):
+    path = _deck(tmp_path, 'C', **{"'channel'": "'cesm'"})
+    for case in (jcase, tcase):
+        with pytest.raises(ValueError, match='GRFILE'):
+            case.build_case(path, **({} if case is jcase
+                                     else {'device': 'cpu'}))
 
 
 def test_build_case_needs_cuda_or_device(tmp_path, monkeypatch):

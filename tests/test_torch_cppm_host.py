@@ -14,7 +14,9 @@ inside the grid) whose land gives every stencil class.  One f32 case
 runs within 1e-4 of max |ref|, chip_smoke's f32 tolerance; one case of
 each axis runs each block as the launch's threads, host threads meeting
 at a real barrier; one case of each dtype sweeps the channel's 512-cell
-j-lines, with fewer lines per block.  Skips when g++ is absent."""
+j-lines, with fewer lines per block; every variant sweeps periodic
+lines of length 1, 2 and 3 on each axis, where a stencil offset of +-2
+passes more than one period.  Skips when g++ is absent."""
 
 import ctypes
 
@@ -168,3 +170,14 @@ def test_host_sweep_long_lines(lib, dtype):
     assert fn(512, -2, int(f64)) == (2 if f64 else 4) * line
     _check(lib, -2, True, True, 'full', 'non_oscillatory',
            dtype=getattr(torch, dtype), shape=(2, 512, 11))
+
+
+@pytest.mark.parametrize('compat,lim', VARIANTS)
+@pytest.mark.parametrize('n', [1, 2, 3])
+@pytest.mark.parametrize('ax', [-1, -2])
+def test_host_sweep_short_periodic_lines(lib, ax, n, compat, lim):
+    """Periodic lines shorter than the stencil: a neighbour two cells
+    away wraps by the remainder, as torch.roll does (the single-column
+    grid sweeps lines of length 1 on both axes)."""
+    _check(lib, ax, True, True, compat, lim,
+           shape=(KK, J, n) if ax == -1 else (KK, n, I))

@@ -14,8 +14,10 @@ their ring reaches the ghost row; its 40 columns end inside the second
 column of tiles, and 5 levels inside the second block of levels.  One
 f32 case runs within 1e-4 of max |ref|, chip_smoke's f32 tolerance, and
 one tripolar case of each scheme runs each block as the launch's
-threads, host threads meeting at a real barrier.  Skips when g++ is
-absent."""
+threads, host threads meeting at a real barrier.  Grids periodic in
+both axes with a period of 1, 2 or 3 on either axis (the single column is
+1 x 1) read up to three points past an edge, more than one period.
+Skips when g++ is absent."""
 
 import ctypes
 import dataclasses
@@ -51,14 +53,17 @@ def lib(tmp_path_factory):
     return out
 
 
-def inputs(periodic_i, arctic, dtype=torch.float64, seed=0, shape=(KK, J, I)):
+def inputs(periodic_i, arctic, dtype=torch.float64, seed=0, shape=(KK, J, I),
+           land=True):
     """tests/test_torch_momtum.py's fixture as the port's tensors: random
-    land (a quarter of the cells), walls at the ends of a closed i axis,
+    land (a quarter of the cells, none without `land`), walls at the ends
+    of a closed i axis,
     random velocities, thicknesses and fluxes; a tripolar grid is closed
     in j with the fold on its top row, the others periodic in j."""
     kk, jj, ii = shape
     rng = np.random.default_rng(seed)
-    depths = np.where(rng.uniform(size=(jj, ii)) < .75, 200., 0.)
+    depths = np.where(rng.uniform(size=(jj, ii)) < (.75 if land else 2.),
+                      200., 0.)
     if not periodic_i:
         depths[:, 0] = depths[:, -1] = 0.
     if arctic:
@@ -138,8 +143,8 @@ def run_kernel(lib, grid, par, f, d2, tsfac=TSFAC, delt1=DELT1):
 
 
 def _check(lib, periodic_i, arctic, mommth, dtype=torch.float64,
-           threads=1):
-    grid, f, d2 = inputs(periodic_i, arctic, dtype)
+           threads=1, shape=(KK, J, I), land=True):
+    grid, f, d2 = inputs(periodic_i, arctic, dtype, shape=shape, land=land)
     par = momtum.MomtumParams(mommth=mommth, **PARAMS)
     lib.shim_set_block_threads(threads)
     try:
@@ -191,3 +196,13 @@ def test_host_momtum_block_threads(lib, mommth):
     the tripolar grid: every point of every stage covered by some thread,
     and every stage's reads of its neighbours behind a barrier."""
     _check(lib, True, True, mommth, threads=-1)
+
+
+@pytest.mark.parametrize('mommth', SCHEMES)
+@pytest.mark.parametrize('jj,ii', [(1, 1), (2, 2), (3, 3), (J, 1), (J, 2),
+                                   (J, 3), (1, I), (2, I), (3, I)])
+def test_host_momtum_short_periods(lib, jj, ii, mommth):
+    """Periodic in both axes with a period of 1, 2 or 3 on either: reads
+    up to three points past an edge wrap by the remainder, as torch.roll
+    does.  All water, so that a 1 x 1 grid has a velocity point."""
+    _check(lib, True, False, mommth, shape=(KK, jj, ii), land=False)
