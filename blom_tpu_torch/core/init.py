@@ -7,6 +7,7 @@ The column scans of blom_tpu are Python loops over k."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import eos
@@ -15,14 +16,125 @@ from .grid import Grid
 from .state import State, empty_state, cumulative_p, dpu_dpv_upstream
 
 
-def getpl(e_th, e_s, phiu, phil, pup, iters: int = 12):
+# ---- getpl as blom_tpu's compiled getpl rounds it.  XLA on the CPU
+# contracts a product whose one use is an add or subtract in the same
+# fusion into a fused multiply-add (one rounding), and rewrites
+# x / (a / b) as x * b / a.  blom_tpu runs getpl's Newton loop compiled,
+# so the port computes those operations with an exactly rounded fma:
+# Dekker's TwoProduct and Knuth's TwoSum give a*b + c as three exact
+# parts, and a sum rounded to odd (Boldo and Melquiond, IEEE TC 57(4),
+# 2008) keeps the final rounding single.  Each step is one eager IEEE
+# operation, so the CPU and CUDA give the same bits.
+
+_SPLIT = 134217729.0          # 2**27 + 1, Dekker's split of a double
+
+
+def _split(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _odd_sum(a, b):
+    """a + b rounded to odd: the sum, or where it is inexact and its
+    last bit even, its neighbour toward the exact value."""
+    s, e = _two_sum(a, b)
+    fix = ((s.view(torch.int64) & 1) == 0) & (e != 0)
+    return torch.where(fix, torch.nextafter(s, e * float('inf')), s)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, for float64 or float32 tensors; a Python
+    float operand is first rounded to the tensors' dtype."""
+    like = next(x for x in (a, b, c) if torch.is_tensor(x))
+    dt = like.dtype
+    narrow = np.float32 if dt == torch.float32 else np.float64
+
+    def wide(x):
+        return x.double() if torch.is_tensor(x) else float(narrow(x))
+
+    a, b, c = wide(a), wide(b), wide(c)
+    if dt == torch.float32:
+        # the product of two floats is exact in a double, and a double
+        # sum rounded to odd then rounds to float correctly
+        return _odd_sum(a * b, c).to(dt)
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    return th + _odd_sum(tl, ul)
+
+
+def _eos_coeffs(th, s):
+    """delphi's aa1, aa2, bb1, bb2 (eos.py) with the compiled
+    contractions."""
+    f = _fma
+    aa1 = f(f(s, eos.a16, eos.a13), s,
+            f(f(s, eos.a15, f(th, eos.a14, eos.a12)), th, eos.a11))
+    aa2 = f(f(s, eos.a26, eos.a23), s,
+            f(f(s, eos.a25, f(th, eos.a24, eos.a22)), th, eos.a21))
+    bb1 = f(s, eos.b13, f(th, eos.b12, eos.b11))
+    bb2 = f(s, eos.b23, f(th, eos.b22, eos.b21))
+    return aa1, aa2, bb1, bb2
+
+
+def getpl(e_th, e_s, phiu, phil, pup, iters: int = 12,
+          compiled_guess: bool = True, coeffs=None):
     """Lower interface pressure from layer T/S and the geopotential at
     both interfaces (getpl, mod_inicon.F90:105-137): a fixed number of
-    Newton iterations on the hydrostatic integral."""
-    plo = pup - eos.rho(pup, e_th, e_s) * (phil - phiu)
-    for _ in range(iters):
-        dphi, _, alpl = eos.delphi(pup, plo, e_th, e_s)
-        plo = plo - (phil - phiu - dphi) / alpl
+    Newton iterations on the hydrostatic integral, rounded as blom_tpu's
+    compiled getpl (eos.delphi with its products contracted).  With
+    `compiled_guess` False the first guess is eos.rho's plain rounding,
+    as blom_tpu's init_state computes it for the top interface, outside
+    any compiled loop.  `coeffs`: _eos_coeffs(e_th, e_s), if the caller
+    has them.
+
+    An iteration is a fixed function of plo, so once one returns every
+    column's plo of one or of two iterations before, each column repeats
+    with period 1 or 2 from there on: the loop stops and returns the
+    value the last of `iters` iterations would give, bit for bit."""
+    f = _fma
+    aa1, aa2, bb1, bb2 = coeffs or _eos_coeffs(e_th, e_s)
+    dphi0 = phil - phiu
+    if compiled_guess:
+        plo = f(-(f(bb1, pup, aa1) / f(bb2, pup, aa2)), dphi0, pup)
+    else:
+        plo = pup - eos.rho(pup, e_th, e_s) * dphi0
+    c = aa2 - aa1 * bb2 / bb1
+    # aa + bb * p at pm and plo, the four in one call
+    bb, aa = torch.stack([bb1, bb2, bb1, bb2]), torch.stack([aa1, aa2, aa1,
+                                                             aa2])
+    bits = torch.int64 if plo.dtype == torch.float64 else torch.int32
+    prev = None
+    for it in range(iters):
+        pm = (pup + plo) * .5
+        d1m, d2m, d1, d2 = f(bb, torch.stack([pm, pm, plo, plo]), aa)
+        r = ((plo - pup) * .5) / d1m
+        q = bb1 * r
+        qq = q * q
+        ser = f(qq, f(qq, f(qq, 1 / 9., 1 / 7.), .2), 1 / 3.)
+        # dphi0 - dphi with dphi = -2 r (aa2 + bb2 pm + c qq ser): XLA's
+        # dphi0 - (-2 r) * x, exactly dphi0 + 2 r * x
+        res = f(r * 2., f(c * qq, ser, d2m), dphi0)
+        # res / alp(plo), alp = (aa2 + bb2 p) / (aa1 + bb1 p)
+        new = plo - res * d1 / d2
+        if torch.equal(new.view(bits), plo.view(bits)):
+            return new              # every column at its fixed point
+        if prev is not None and torch.equal(new.view(bits), prev.view(bits)):
+            # every column repeats with period 1 or 2 from here on
+            return new if (iters - 1 - it) % 2 == 0 else plo
+        prev, plo = plo, new
     return plo
 
 
@@ -55,9 +167,14 @@ def init_state(grid: Grid, e: eos.EosParams, *, phi, temp, saln, sigmar,
 
     # hydrostatic interface pressures (mod_inicon.F90:1046-1068)
     zero2 = torch.zeros_like(phi[0])
-    plist = [getpl(temp[0], saln[0], zero2, phi[0], zero2)]
+    coeffs = _eos_coeffs(temp, saln)         # every layer's at once
+    # (blom_tpu computes the top interface's first guess outside its
+    # compiled loops, the rest inside its compiled column scan)
+    plist = [getpl(temp[0], saln[0], zero2, phi[0], zero2,
+                   compiled_guess=False, coeffs=[c[0] for c in coeffs])]
     for k in range(kk):
-        plist.append(getpl(temp[k], saln[k], phi[k], phi[k + 1], plist[-1]))
+        plist.append(getpl(temp[k], saln[k], phi[k], phi[k + 1], plist[-1],
+                           coeffs=[c[k] for c in coeffs]))
     p = torch.stack(plist) * ip
 
     dp = (p[1:] - p[:-1]) * ip

@@ -144,9 +144,30 @@ def empty_state(grid: Grid, dtype=None, ntr: int = 0) -> State:
     return State(**fields)
 
 
+#: XLA on the CPU rewrites a cumulative sum longer than this into blocks
+#: of this length
+_XLA_SCAN_BLOCK = 16
+
+
+def cumsum0(a):
+    """torch.cumsum(a, 0) in the order of blom_tpu's jnp.cumsum on the
+    CPU: up to 16 terms in order; more in blocks of 16, each summed in
+    order, plus the running sum of the block totals before it."""
+    k, b = a.shape[0], _XLA_SCAN_BLOCK
+    if k <= b:
+        return torch.cumsum(a, 0)
+    nb = -(-k // b)
+    pad = a.new_zeros((nb * b - k,) + a.shape[1:])
+    inner = torch.cumsum(torch.cat([a, pad]).reshape((nb, b) + a.shape[1:]),
+                         1)
+    before = torch.cat([torch.zeros_like(inner[:1, -1]),
+                        cumsum0(inner[:-1, -1])])
+    return (inner + before[:, None]).reshape((nb * b,) + a.shape[1:])[:k]
+
+
 def cumulative_p(dp_k):
     """Interface pressures (kk+1, ...) from layer thicknesses (kk, ...)."""
-    return torch.cat([torch.zeros_like(dp_k[:1]), torch.cumsum(dp_k, 0)], 0)
+    return torch.cat([torch.zeros_like(dp_k[:1]), cumsum0(dp_k)], 0)
 
 
 def dpu_dpv_upstream(grid: Grid, p_i):

@@ -7,7 +7,13 @@ barotropic state one baroclinic leap-frog interval and a further half to
 predict the transport sums of the next step.  The substep loop is a
 Python loop; the u/v solve order alternates with the substep parity
 (mod_barotp.F90:381-384), and the two working time levels sit on a
-leading axis of size 2 whose ml/nl roles follow the parity."""
+leading axis of size 2 whose ml/nl roles follow the parity.
+
+`make_substep` and `run_blocks` work on a bundle of 2-D fields with
+injected shifts (`Shifts`), so the same substeps run on the global
+fields (`barotp`) and on halo-widened blocks with an exchange every few
+substeps (barotp_shmap.py, the reference's margin-2 trick of
+mod_barotp.F90:387-397)."""
 
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from ..core.constants import onem, epsilp
 from ..core.grid import Grid
 from ..core.state import State
+from ..ops import stencil
 from .tmsmt import wbaro
 
 
@@ -86,6 +93,30 @@ def _prologue(grid: Grid, s: State, utotn, vtotn, m: int, n: int,
     }
 
 
+class Shifts(NamedTuple):
+    im1: object
+    ip1: object
+    jm1: object
+    jp1v: object    # j+1 read of a v-grid vector (fold-aware globally)
+    jp1q: object    # j+1 read of a q-grid scalar
+
+
+def global_shifts(grid: Grid) -> Shifts:
+    return Shifts(im1=grid.im1, ip1=grid.ip1, jm1=grid.jm1,
+                  jp1v=lambda a: grid.jp1(a, 'v', True),
+                  jp1q=lambda a: grid.jp1(a, 'q'))
+
+
+def local_shifts() -> Shifts:
+    """Shifts on a halo-widened block: slice and zero pad, never a roll
+    (the ghost rings take the edge's garbage; the caller's margin
+    schedule keeps it out of the block)."""
+    def sh(off, axis):
+        return lambda a: stencil._shift(a, axis, off, False)
+    return Shifts(im1=sh(-1, -1), ip1=sh(1, -1), jm1=sh(-1, -2),
+                  jp1v=sh(1, -2), jp1q=sh(1, -2))
+
+
 def substep_weights(lstep: int):
     """Per-substep PGF time-interpolation weights (mod_barotp.F90:328-358):
     block 1 ramps the old level out, blocks 2-3 ramp the new level in,
@@ -111,17 +142,13 @@ def substep_weights(lstep: int):
     return weights
 
 
-def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
+def make_substep(fld, sh: Shifts, lstep: int, dlt, par: BarotpParams):
     """The per-substep update over a field bundle (mod_barotp.F90:360-838).
     The returned function updates the working-level tensors of its carry
     in place."""
     if par.mommth not in ('enscon', 'enecon', 'enedis'):
         raise ValueError(f'barotp mommth={par.mommth!r}')
-    im1, ip1, jm1 = grid.im1, grid.ip1, grid.jm1
-    # j+1 reads of a v-grid vector and of a q-grid scalar, fold-aware
-    # (global_shifts, blom_tpu/dynamics/barotp.py:121-125)
-    jp1v = lambda a: grid.jp1(a, 'v', True)     # noqa: E731
-    jp1q = lambda a: grid.jp1(a, 'q')           # noqa: E731
+    im1, ip1, jm1, jp1v, jp1q = sh
     weights = substep_weights(lstep)
 
     def pgf_terms_u(wo, wm, wn, pb_nl):
@@ -227,13 +254,27 @@ def make_substep(grid: Grid, fld, lstep: int, dlt, par: BarotpParams):
     return substep
 
 
-def run_blocks(grid: Grid, fld, s_ubflxs, s_vbflxs, s_ubflxs_p, s_vbflxs_p,
-               m: int, n: int, lstep: int, dlt, par: BarotpParams):
+def block_loop(nb, substep, half, carry):
+    """One weight block: `half` substeps."""
+    lll0 = 1 + (nb - 1) * half
+    for lll in range(lll0, lll0 + half):
+        carry = substep(nb, carry, lll)
+    return carry
+
+
+def run_blocks(fld, sh: Shifts, s_ubflxs, s_vbflxs, s_ubflxs_p, s_vbflxs_p,
+               m: int, n: int, lstep: int, dlt, par: BarotpParams,
+               block_runner=None):
     """The five weight blocks (mod_barotp.F90:328-986).  Returns
-    (out, sums); the inputs are not modified."""
-    ip, iu, iv = grid.ip, grid.iu, grid.iv
-    im1, jm1 = grid.im1, grid.jm1
-    substep = make_substep(grid, fld, lstep, dlt, par)
+    (out, sums); the inputs are not modified.
+
+    `block_runner(nb, substep, half, carry) -> carry`, when given, runs
+    each block in place of `block_loop` (barotp_shmap's loop with an
+    exchange every few substeps)."""
+    ip, iu, iv = fld['ip'], fld['iu'], fld['iv']
+    im1, jm1 = sh.im1, sh.jm1
+    substep = make_substep(fld, sh, lstep, dlt, par)
+    runner = block_runner or block_loop
     half = lstep // 2
 
     pb_t = fld['pb_t'].clone()
@@ -252,10 +293,8 @@ def run_blocks(grid: Grid, fld, s_ubflxs, s_vbflxs, s_ubflxs_p, s_vbflxs_p,
         return pb * ip, pbu, pbv
 
     for nb in (1, 2, 3, 4, 5):
-        carry = (pb_t, ubflx_t, vbflx_t, z, z, z, z)
-        lll0 = 1 + (nb - 1) * half
-        for lll in range(lll0, lll0 + half):
-            carry = substep(nb, carry, lll)
+        carry = runner(nb, substep, half,
+                       (pb_t, ubflx_t, vbflx_t, z, z, z, z))
         pb_t, ubflx_t, vbflx_t, us_t, vs_t, uc_t, vc_t = carry
         ml_end = (nb * half) % 2   # slot holding 'ml' after the block
 
@@ -335,7 +374,7 @@ def barotp(grid: Grid, s: State, utotn, vtotn, m: int, n: int,
            lstep: int, dlt, par: BarotpParams) -> State:
     """Barotropic solve of one baroclinic step; updates `s` in place."""
     fld = _prologue(grid, s, utotn, vtotn, m, n, par)
-    out, sums = run_blocks(grid, fld, s.ubflxs, s.vbflxs, s.ubflxs_p,
-                           s.vbflxs_p, m, n, lstep, dlt, par)
+    out, sums = run_blocks(fld, global_shifts(grid), s.ubflxs, s.vbflxs,
+                           s.ubflxs_p, s.vbflxs_p, m, n, lstep, dlt, par)
     out['pvtrop_n'] = fld['pvtrop_n']
     return finalize(s, m, n, out, sums)

@@ -15,7 +15,7 @@ import torch
 from ..core import eos
 from ..core.constants import grav, onemm, epsilp
 from ..core.grid import Grid
-from ..core.state import State, cumulative_p, dpu_dpv_upstream
+from ..core.state import State, cumsum0, cumulative_p, dpu_dpv_upstream
 
 wpgf = .25        # PGF time-averaging weight (mod_pgforc.F90:46-48)
 p0_dynh = 0.0     # dynamic-enthalpy reference pressure (mod_pgforc.F90:49)
@@ -23,7 +23,7 @@ p0_dynh = 0.0     # dynamic-enthalpy reference pressure (mod_pgforc.F90:49)
 
 def _revcumsum(a):
     """sum_{k'=k}^{K-1} a[k'] along the first axis."""
-    return torch.flip(torch.cumsum(torch.flip(a, [0]), 0), [0])
+    return torch.flip(cumsum0(torch.flip(a, [0])), [0])
 
 
 def pgforc(grid: Grid, e: eos.EosParams, s: State, m: int, n: int,

@@ -93,6 +93,8 @@ class StepParams(NamedTuple):
     thermf: Optional[ThermfParams] = ThermfParams()
     mxlayr: MxlayrParams = MxlayrParams()
     ltedtp: str = 'layer'     # 'layer' | 'neutral' (mod_diffusion.F90:99)
+    barotp_fn: object = None  # in place of barotp: the margin-k solver
+    #                           (barotp_shmap.make_barotp_shmap)
 
 
 def _diffus_on(par: StepParams) -> bool:
@@ -320,7 +322,10 @@ def blom_step(grid: Grid, e: eos.EosParams, par: StepParams,
     ckpt(n)   # budget_sums(5,n) after updtrc (:215)
 
     _mark('barotp')
-    s = barotp(grid, s, utotn, vtotn, m, n, par.lstep, dlt, par.barotp)
+    # the margin-k block solver takes its place through par.barotp_fn
+    # (mod_barotp.F90:387-397)
+    s = (par.barotp_fn or barotp)(grid, s, utotn, vtotn, m, n, par.lstep,
+                                  dlt, par.barotp)
     _mark('pbcor2')
     s = pbcor2(grid, e, s, m, n, dlt)
     ckpt(m)   # budget_sums(6,m) after pbcor2 (:224)

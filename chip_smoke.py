@@ -247,7 +247,23 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    parity on the card against the CPU from the state two CPU steps
    reach, within STEP_REL, and runner_kernels, every kernel launch of
    that step exact against its plain version on the step's inputs;
-14. the kernels summary line (with the tracer counts each kernel met,
+14. sharded_barotp: the margin-k barotropic solver
+   (dynamics/barotp_shmap.py) in the step through StepParams.barotp_fn,
+   on a mesh of blocks stacked in one process: fuk95 with bench.py's
+   physics at 384x360x53 in f32 on a 2x2 mesh of 180x192 blocks, one
+   warm-up step and then NSTEPS_SHARDED steps from the same state with
+   the plain solver and with the blocks, every State and diffusion
+   field equal bit for bit after each step, and one f64 step the same;
+   the synthetic tripolar grid at that size in f32, one step from a
+   warmed-up state on meshes 1x2 and 2x2, bitwise across the two and
+   within STEP_REL of the plain step; each blocks solver is called once
+   before its steps (its exchanges' constant tensors reach the card
+   then), and in every step it makes no more synchronizing calls
+   (count_syncs) than the plain solver; reported: s/step and barotp ms
+   of both solvers (CUDA events), exchanges per step, synchronizing
+   calls per step, and the launches of the four kernels in the blocks'
+   steps (as the main path's);
+15. the kernels summary line (with the tracer counts each kernel met,
    its tripolar inputs, its short-period checks and its checks on the
    runner's inputs) and the script's
    total seconds, then the device line last.  It fails if a variant of a
@@ -255,7 +271,8 @@ Phases, each reported as one JSON line; any failure exits nonzero:
    path, the tracer paths, the carbon-isotope path, the decks, the
    tripolar grid, the vertical physics, the high-order ALE methods, the
    transport options, the surface physics, the instrumented path, the
-   restarts, run_case, the cap, the single column, the runner).
+   restarts, run_case, the cap, the single column, the runner, the
+   sharded barotropic solver).
 
 Inputs are made from a fixed seed.  Without CUDA, or without the
 package beside it, the script exits nonzero before printing a result.
@@ -2179,9 +2196,10 @@ def run_tripolar_symmetry(dev):
 
 
 def state_to(s, dev):
-    """A copy of State `s` on `dev`."""
+    """A copy of `s`, a dataclass of tensors (State, DiffusionFields), on
+    `dev`."""
     import dataclasses
-    return type(s)(**{f.name: getattr(s, f.name).to(dev)
+    return type(s)(**{f.name: getattr(s, f.name).to(dev, copy=True)
                       for f in dataclasses.fields(s)})
 
 
@@ -3894,6 +3912,162 @@ def run_runner_checks(dev, results):
     return ok_all
 
 
+SHARDED_MESH = (2, 2)                 # 180x192 blocks at 360x384
+SHARDED_TRIPOLAR_MESHES = ((1, 2), (2, 2))
+NSTEPS_SHARDED = (1, 4)               # warm-up, compared steps
+
+
+def _unequal(a, b):
+    """The tensor fields of two dataclasses that differ in any bit
+    (compared as integers, so -0.0 and 0.0 differ and NaN equals
+    itself)."""
+    import dataclasses
+    import torch
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not torch.is_tensor(x) or x.shape != y.shape:
+            out += [] if x is y else [f.name]
+            continue
+        if x.is_floating_point():
+            it = torch.int64 if x.element_size() == 8 else torch.int32
+            x, y = x.contiguous().view(it), y.contiguous().view(it)
+        if not torch.equal(x, y):
+            out.append(f.name)
+    return out
+
+
+def _steps(model, barotp_fn, s, first, nsteps):
+    """`nsteps` leap-frog steps of blom_step with `barotp_fn` from state
+    `s` and the model's diffusion fields, time-level parity (m, n) =
+    first.  Returns copies of (s, dfl) after each step, the
+    synchronizing calls of each step (count_syncs), and the mean device
+    ms of a step and of a barotp call (CUDA events)."""
+    import torch
+    from blom_tpu_torch.dynamics import step
+    bt_events, step_events = [], []
+    par = model.par._replace(barotp_fn=event_timer(barotp_fn, bt_events))
+    timed = event_timer(step.blom_step, step_events)
+    dev = s.dp.device
+    s, dfl = s.clone(), state_to(model.dfl, dev)
+    (m, n), after, syncs = first, [], []
+    for _ in range(nsteps):
+        (s, dfl), k = count_syncs(lambda: timed(
+            model.grid, model.e, par, model.coeffs_i, model.coeffs_j, s,
+            model.forcing, dfl, m, n, 2. * model.par.baclin, model.swabs))
+        syncs.append(k)
+        after.append((state_to(s, dev), state_to(dfl, dev)))
+        m, n = n, m
+    torch.cuda.synchronize()
+    return after, syncs, {
+        what: statistics.mean(e0.elapsed_time(e1) for e0, e1 in events)
+        for what, events in (('step', step_events), ('barotp', bt_events))}
+
+
+def _blocks(model, shape, s):
+    """make_barotp_shmap on a stacked mesh of `shape`, called once on a
+    copy of `s` with zero tendencies so that the constant tensors of its
+    exchanges are on the card before the timed steps."""
+    import torch
+    from blom_tpu_torch.dynamics.barotp_shmap import make_barotp_shmap
+    from blom_tpu_torch.parallel.mesh import make_mesh
+    fn = make_barotp_shmap(make_mesh(shape=shape))
+    p, zero = model.par, torch.zeros_like(s.pb[0])
+    fn(model.grid, s.clone(), zero, zero, 0, 1, p.lstep, p.dlt, p.barotp)
+    return fn
+
+
+def run_sharded_barotp(dev, paths):
+    """Phase 14 (sharded_barotp): the blocks' barotp against the plain
+    one inside the step, bit for bit on fuk95 in f32 and f64, and on the
+    tripolar grid bitwise across meshes and within STEP_REL of the plain
+    step; in every step the blocks make no more synchronizing calls than
+    the plain solver.  The launches of the blocks' f32 steps go to
+    paths['fuk95_sharded_barotp']."""
+    import dataclasses
+    import torch
+    from blom_tpu_torch.drivers import standalone
+    from blom_tpu_torch.dynamics import barotp
+    from blom_tpu_torch.dynamics.difest import DifestParams
+    warm, nsteps = NSTEPS_SHARDED
+    first = (1, 0) if warm % 2 else (0, 1)
+    ok_all = True
+    for dt, n in (('float32', nsteps), ('float64', 1)):
+        t0 = time.perf_counter()
+        model = standalone.build_fuk95(dtype=getattr(torch, dt), itdm=II,
+                                       jtdm=JJ, kdm=KK, device=dev)
+        model.par = model.par._replace(difest=DifestParams(**BENCH_DIFEST))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        s, c = standalone.run(model, warm)
+        runs = {'plain': _steps(model, barotp.barotp, s, first, n)}
+        fn = _blocks(model, SHARDED_MESH, s)
+        exch0 = fn.comm.exchanges
+        zero_counters()
+        runs['blocks'] = _steps(model, fn, s, first, n)
+        exchanges = (fn.comm.exchanges - exch0) / n
+        counts = counters()
+        counts.pop('host_syncs')
+        if dt == 'float32':
+            paths['fuk95_sharded_barotp'] = counts
+        differ = [(k, _unequal(a[0], b[0]) + _unequal(a[1], b[1]))
+                  for k, (a, b) in enumerate(zip(runs['plain'][0],
+                                                 runs['blocks'][0]))]
+        differ = [(k, d) for k, d in differ if d]
+        finite = all(bool(torch.isfinite(getattr(
+            runs['blocks'][0][-1][0], f)).all())
+            for f in ('dp', 'temp', 'saln', 'u', 'v', 'pb'))
+        syncs = {k: r[1] for k, r in runs.items()}
+        fewer_syncs = all(b <= a for a, b in zip(syncs['plain'],
+                                                 syncs['blocks']))
+        ok = (not differ and finite and fewer_syncs
+              and launches_ok(counts, model.par, n)
+              and exchanges == 1 + 5 * -(-(model.par.lstep // 2) // 2))
+        ms = {k: r[2] for k, r in runs.items()}
+        emit('sharded_barotp', grid='fuk95', dtype=dt, shape=[KK, JJ, II],
+             mesh=list(SHARDED_MESH), blocks=[JJ // SHARDED_MESH[0],
+                                              II // SHARDED_MESH[1]],
+             build_seconds=build_s, warmup_steps=warm, steps=n, ok=ok,
+             bitwise=not differ, differing=differ[:4], finite=finite,
+             host_syncs_per_step=syncs, host_syncs_ok=fewer_syncs,
+             seconds_per_step={k: v['step'] / 1e3 for k, v in ms.items()},
+             barotp_ms={k: v['barotp'] for k, v in ms.items()},
+             barotp_ratio=ms['blocks']['barotp'] / ms['plain']['barotp'],
+             exchanges_per_step=exchanges, launches=counts)
+        ok_all &= ok
+
+    t0 = time.perf_counter()
+    model = standalone.build_tripolar(dtype=torch.float32, itdm=II,
+                                      jtdm=JJ, kdm=KK, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s, _ = standalone.run(model, warm)
+    runs = {'plain': _steps(model, barotp.barotp, s, first, 1)}
+    for shape in SHARDED_TRIPOLAR_MESHES:
+        runs[f'{shape[0]}x{shape[1]}'] = _steps(
+            model, _blocks(model, shape, s), s, first, 1)
+    a, b = (runs[f'{y}x{x}'][0][0][0] for y, x in SHARDED_TRIPOLAR_MESHES)
+    across = _unequal(a, b)
+    fields = [f.name for f in dataclasses.fields(a)
+              if torch.is_tensor(getattr(a, f.name))
+              and getattr(a, f.name).is_floating_point()
+              and getattr(a, f.name).numel()]
+    worst = worst_field(state_to(runs['plain'][0][0][0], 'cpu'), b, fields)
+    syncs = {k: r[1] for k, r in runs.items()}
+    fewer_syncs = all(b <= a for v in syncs.values()
+                      for a, b in zip(syncs['plain'], v))
+    ok = not across and worst[1] <= STEP_REL and fewer_syncs
+    emit('sharded_barotp', grid='tripolar', dtype='float32',
+         shape=[KK, JJ, II], meshes=[list(m) for m in
+                                     SHARDED_TRIPOLAR_MESHES],
+         build_seconds=build_s, ok=ok, bitwise_across_meshes=not across,
+         differing=across[:4], tolerance=STEP_REL,
+         worst_against_plain=worst, host_syncs_per_step=syncs,
+         host_syncs_ok=fewer_syncs,
+         barotp_ms={k: r[2]['barotp'] for k, r in runs.items()})
+    return ok_all & ok
+
+
 def _flat(out):
     """The tensors of a kernel's output, its lists flattened."""
     flat = []
@@ -4164,6 +4338,7 @@ def main():
     ok &= run_coupled_parity(dev)
     ok &= run_single_column(dev, paths, short_results)
     ok &= run_testsuite(dev, paths, runner_results)
+    ok &= run_sharded_barotp(dev, paths)
 
     kernels = kernel_summary(results, paths, tracer_results,
                              tripolar_results, short_results,

@@ -18,6 +18,7 @@ tolerance, and one takes more levels than the former cap of 64.  Skips
 when g++ is absent."""
 
 import ctypes
+import os
 import re
 import shutil
 import subprocess
@@ -46,28 +47,41 @@ def _one_thread():
 def _host_build(tmp_path_factory, name, nargs):
     """csrc/<name>.cu built by g++ against the host shim and loaded: its
     entry points <name>_f32 and <name>_f64 take `nargs` pointers, and
-    <name>_kk_max, where the library has one, an int and a long."""
+    <name>_kk_max, where the library has one, an int and a long.  Built
+    once per test run: under pytest-xdist in the run's directory common
+    to its workers, which load the same library."""
+    from filelock import FileLock
+
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip(f'g++ is not installed: the host build of {name} needs '
                     'it')
-    d = tmp_path_factory.mktemp(f'{name}_host')
-    (d / 'cuda_runtime.h').write_text(
-        f'#include "{CSRC / "host_shim.h"}"\n')
-    for h in CSRC.glob('*.cuh'):
-        shutil.copy(h, d / h.name)
-    src = (CSRC / f'{name}.cu').read_text()
-    src = re.sub(r'(\w+(?:<[^<>;]*>)?)\s*<<<([^,]+),([^,]+),([^,]+),[^>]+>>>'
-                 r'\((.*?)\);', r'shim_launch(\1, \2, \3, \4, \5);', src)
-    src = re.sub(r'extern __shared__[^;]*\b(\w+)\[\];',
-                 r'unsigned char *\1 = shim_shared();', src)
-    assert 'shim_launch(' in src and 'shim_shared()' in src
-    (d / f'{name}.cpp').write_text(src)
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get('PYTEST_XDIST_WORKER'):
+        root = root.parent
+    d = root / f'{name}_host'
     so = d / f'lib{name}_host.so'
-    subprocess.run([gxx, '-std=c++17', '-O1', '-ffp-contract=off',
-                    '-shared', '-fPIC', '-pthread', '-I', str(d), '-o',
-                    str(so), str(d / f'{name}.cpp')], check=True,
-                   capture_output=True, text=True)
+    with FileLock(f'{d}.lock'):
+        if not so.is_file():
+            d.mkdir(exist_ok=True)
+            (d / 'cuda_runtime.h').write_text(
+                f'#include "{CSRC / "host_shim.h"}"\n')
+            for h in CSRC.glob('*.cuh'):
+                shutil.copy(h, d / h.name)
+            src = (CSRC / f'{name}.cu').read_text()
+            src = re.sub(r'(\w+(?:<[^<>;]*>)?)\s*<<<([^,]+),([^,]+),([^,]+),'
+                         r'[^>]+>>>\((.*?)\);',
+                         r'shim_launch(\1, \2, \3, \4, \5);', src)
+            src = re.sub(r'extern __shared__[^;]*\b(\w+)\[\];',
+                         r'unsigned char *\1 = shim_shared();', src)
+            assert 'shim_launch(' in src and 'shim_shared()' in src
+            (d / f'{name}.cpp').write_text(src)
+            part = d / f'lib{name}_host.part'
+            subprocess.run([gxx, '-std=c++17', '-O1', '-ffp-contract=off',
+                            '-shared', '-fPIC', '-pthread', '-I', str(d),
+                            '-o', str(part), str(d / f'{name}.cpp')],
+                           check=True, capture_output=True, text=True)
+            part.replace(so)
     out = ctypes.CDLL(str(so))
     for t in ('f32', 'f64'):
         getattr(out, f'{name}_{t}').argtypes = [ctypes.c_void_p] * nargs

@@ -14,28 +14,30 @@ blom_tpu's, on the CPU in f64.
   drivers under a zonal wind stress within test_torch_slice.py's
   FULL_TOL; `build_single_column` the same;
 - a day of the port's single column with tests/test_configs.py's checks;
+- `getpl` bit for bit blom_tpu's compiled one on seeded columns;
 - a sea floor from 100 to 5500 m under a WOA-shaped climatology leaves
-  massless bottom layers in the shallow columns, and blom_tpu's own ALE
-  step is NaN from the port's initial state (which differs from
-  blom_tpu's by rounding) exactly where the port's is, while it is
-  finite from blom_tpu's own (ROADMAP section 3).
+  massless bottom layers in the shallow columns: the port's initial
+  pressures equal blom_tpu's bit for bit, and the first ALE step of both
+  is finite and agrees within FULL_TOL.
 
 blom_tpu's 4-step runs compile its step (~30 s each) and are built once
 per test run (tests/torch_shared.py)."""
 
 import dataclasses
 
-import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
 
 from blom_tpu.core import geoenv as jgeo
+from blom_tpu.core import init as jinit
 from blom_tpu.core import inicon as jini
 from blom_tpu.drivers import standalone as jst
 from blom_tpu.dynamics import ale as jal
 from blom_tpu_torch import convert
 from blom_tpu_torch.core import geoenv as tgeo
+from blom_tpu_torch.core import init as tinit
 from blom_tpu_torch.core import inicon as tini
 from blom_tpu_torch.core.grid import TENSOR_FIELDS
 from blom_tpu_torch.dynamics import ale as tal
@@ -285,17 +287,31 @@ def test_entry_points_need_cuda_or_device(monkeypatch, tmp_path):
                            baclin=180., batrop=6.)
 
 
-def test_varying_floor_ale_turns_nan_in_blom_tpu(tmp_path):
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_getpl_rounds_as_blom_tpu_compiled(dtype):
+    """core/init.py getpl equals blom_tpu's jitted getpl bit for bit on
+    20,000 seeded (T, S, phi, p) columns: XLA contracts its products into
+    fused multiply-adds, which the port rounds exactly once."""
+    rng = np.random.default_rng(21)
+    n = 20000
+    phiu = -rng.uniform(0., 4e4, n)
+    cols = [a.astype(dtype) for a in (
+        rng.uniform(-2., 30., n), rng.uniform(30., 38., n), phiu,
+        phiu - rng.uniform(1., 5e3, n), -1.025 * phiu)]
+    ref = np.asarray(jax.jit(jinit.getpl)(*cols))
+    got = tinit.getpl(*map(torch.from_numpy, cols)).numpy()
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_varying_floor_init_and_ale_match_blom_tpu(tmp_path):
     """A floor from 100 to 5500 m under gridfiles' WOA-shaped
-    climatology at 32x24x53 (smaller grids stay finite), f64: the port's
-    first ALE regrid/remap from its own initial state is NaN in four
-    shallow columns, the last wet layer above 42 massless ones (an open
-    fault of the port, ROADMAP section 3).  The port's initial state
-    agrees with blom_tpu's to 1e-12: inicon_woa bit for bit, then
-    init_state's hydrostatic pressures by an ulp (blom_tpu runs getpl's
-    Newton iterations compiled).  blom_tpu's ALE step (as its cap calls
-    it, not under jit) from the port's state is NaN exactly where the
-    port's is; from blom_tpu's own state it is finite."""
+    climatology at 32x24x53, f64, leaves massless bottom layers in the
+    shallow columns.  The port's initial state equals blom_tpu's bit for
+    bit in p, dp and pb (its getpl rounds as blom_tpu's compiled one:
+    with an ulp apart there, the first ALE step of either package was
+    NaN in four 105 m columns); the port's first ALE regrid/remap is
+    then finite where blom_tpu's is and agrees with it within FULL_TOL."""
     itdm, jtdm, kdm = 32, 24, 53
     geom = tst.build_tripolar(itdm=itdm, jtdm=jtdm, kdm=6, device='cpu').grid
     y = np.arange(jtdm)[:, None] / (jtdm - 1)
@@ -317,12 +333,19 @@ def test_varying_floor_ale_turns_nan_in_blom_tpu(tmp_path):
     jm = jst.build_gridfile(grfile, **kw)
     tm = tst.build_gridfile(grfile, **kw, device='cpu')
     _state_close(jm.state, tm.state)
-    port_state = dataclasses.replace(jm.state, **{
-        k: jnp.asarray(v) for k, v in _np_fields(tm.state).items()})
-    ref = jal.ale_regrid_remap(jm.grid, jm.e, jm.par.ale, port_state, 0, 1,
+    for name in ('p', 'dp', 'pb'):
+        np.testing.assert_array_equal(getattr(tm.state, name).numpy(),
+                                      np.asarray(getattr(jm.state, name)),
+                                      err_msg=name)
+    ref = jal.ale_regrid_remap(jm.grid, jm.e, jm.par.ale, jm.state, 0, 1,
                                180.)
     out = tal.ale_regrid_remap(tm.grid, tm.e, tm.par.ale, tm.state.clone(),
                                0, 1, 180.)
-    fin = np.isfinite(np.asarray(ref.temp))
-    assert not fin.all()
-    np.testing.assert_array_equal(np.isfinite(out.temp.numpy()), fin)
+    for name in ('dp', 'temp', 'saln', 'u', 'v'):
+        fin = np.isfinite(np.asarray(getattr(ref, name)))
+        assert fin.all(), name
+        np.testing.assert_array_equal(
+            np.isfinite(getattr(out, name).numpy()), fin, err_msg=name)
+    errs = _rel_errors(ref, out)
+    bad = {k: errs[k] for k in FULL_TOL if errs[k] > FULL_TOL[k]}
+    assert not bad, bad

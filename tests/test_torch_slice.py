@@ -84,7 +84,7 @@ from blom_tpu_torch.dynamics import pgforc as tg
 from blom_tpu_torch.dynamics import step as tstep
 from blom_tpu_torch.dynamics import tmsmt as tt
 from blom_tpu_torch.phys import vmix as tvm
-from tests.torch_shared import shared, shared_build
+from tests.torch_shared import shared_build, shared_items
 
 SIZE = dict(itdm=24, jtdm=8, kdm=8)
 PROGNOSTIC = ('u', 'v', 'dp', 'temp', 'saln', 'pb')
@@ -138,39 +138,41 @@ def full_models(default_models):
 def phase_snapshots(models, tmp_path_factory):
     """blom_tpu's state before and after each phase of the first two
     steps, run eagerly phase by phase, once per run."""
-    return shared(tmp_path_factory, 'slice_phase_snapshots',
-                  lambda: _phase_snapshots(models[0]))
+    return shared_items(tmp_path_factory, 'slice_phase_snapshots',
+                        lambda: _phase_items(models[0]))
 
 
-def _phase_snapshots(jm):
+def _phase_items(jm):
+    """Yields ((step, phase), (m, n, delt1, state before, state after,
+    momtum's depth-mean tendencies or None)) as each phase is run."""
     g, e, par = jm.grid, jm.e, jm.par
     s = jm.state
-    snaps = {}
     for step, (m, n) in enumerate(((0, 1), (1, 0))):
         d1 = jm.clock.delt1
         s = jstep.init_fluxes(s, m)
-
-        def run(name, fn, uv=None):
-            nonlocal s
-            before = s
-            s = fn(s)
-            snaps[(step, name)] = (m, n, d1, before, s, uv)
-
-        run('tmsmt1', lambda s: jt.tmsmt1(g, s, n))
-        run('advect', lambda s: ja.advect(g, s, jm.dfl, jm.coeffs_i,
-                                          jm.coeffs_j, m, n, d1, par.dlt))
-        run('pbcor1', lambda s: jp.pbcor1(g, s, m, n, par.dlt))
-        run('pgforc', lambda s: jg.pgforc(g, e, s, m, n))
+        for name, fn in (
+                ('tmsmt1', lambda s: jt.tmsmt1(g, s, n)),
+                ('advect', lambda s: ja.advect(g, s, jm.dfl, jm.coeffs_i,
+                                               jm.coeffs_j, m, n, d1,
+                                               par.dlt)),
+                ('pbcor1', lambda s: jp.pbcor1(g, s, m, n, par.dlt)),
+                ('pgforc', lambda s: jg.pgforc(g, e, s, m, n))):
+            before, s = s, fn(s)
+            yield (step, name), (m, n, d1, before, s, None)
         before = s
         s, ju, jv = jmo.momtum(g, s, jm.forcing, par.momtum,
                                jm.dfl.difwgt, m, n, d1, par.dlt)
         uv = (np.asarray(ju), np.asarray(jv))
-        snaps[(step, 'momtum')] = (m, n, d1, before, s, uv)
-        run('barotp', lambda s: jb.barotp(g, s, ju, jv, m, n, par.lstep,
-                                          par.dlt, par.barotp), uv)
-        run('pbcor2', lambda s: jp.pbcor2(g, e, s, m, n, par.dlt))
-        run('tmsmt2', lambda s: jt.tmsmt2(g, s, m, n))
-    return snaps
+        yield (step, 'momtum'), (m, n, d1, before, s, uv)
+        for name, fn in (
+                ('barotp', lambda s: jb.barotp(g, s, ju, jv, m, n,
+                                               par.lstep, par.dlt,
+                                               par.barotp)),
+                ('pbcor2', lambda s: jp.pbcor2(g, e, s, m, n, par.dlt)),
+                ('tmsmt2', lambda s: jt.tmsmt2(g, s, m, n))):
+            before, s = s, fn(s)
+            yield (step, name), (m, n, d1, before, s,
+                                 uv if name == 'barotp' else None)
 
 
 def _port_phase(tm, name, m, n, d1, s, uv):
@@ -375,8 +377,8 @@ def test_ale_methods_match_blom_tpu(full_models, change):
         ale=mo.par.ale._replace(**change))) for mo in full_models)
     tstep.check_supported(tm.grid, tm.par)
     with jax.disable_jit():
-        snaps = full_step_snapshots(jm, jm.state, jm.dfl, jm.clock.delt1,
-                                    parities=((0, 1),))
+        snaps = dict(full_step_items(jm, jm.state, jm.dfl, jm.clock.delt1,
+                                     parities=((0, 1),)))
     for (_, phase), (m, n, d1, (before, dfl, extra), after) in snaps.items():
         s = convert.state_from_numpy(_np_fields(before))
         tdfl = convert.diffusion_fields_from_numpy(_np_fields(dfl))
@@ -445,59 +447,58 @@ def ref_transport(jm, name, m, n, d1, s, dfl, cf):
     return jdi.diffus(g, e, s, dfl, m, n, d1)
 
 
-def full_step_snapshots(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
+def full_step_items(jm, s, dfl, d1, parities=((0, 1), (1, 0))):
     """blom_tpu's inputs and outputs of every phase of one full step of
     model `jm` per parity (m, n), from state `s` and diffusion fields
     `dfl`, run eagerly phase by phase; on a tripolar grid the step ends
     with the fold's sync ('arctic_sync').  Each entry: (m, n, delt1,
-    (state, dfl, extra) before, output)."""
+    (state, dfl, extra) before, output).  Yields ((step, phase), entry)
+    as each phase is run."""
     g, e, par = jm.grid, jm.e, jm.par
-    snaps = {}
     for step, (m, n) in enumerate(parities):
         s = jstep.init_fluxes(s, m)
-        snaps[(step, 'tmsmt1')] = (m, n, d1, (s, dfl, None),
-                                   s := jt.tmsmt1(g, s, n))
-        snaps[(step, 'ale')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'tmsmt1'), (m, n, d1, (s, dfl, None),
+                                 s := jt.tmsmt1(g, s, n))
+        yield (step, 'ale'), (m, n, d1, (s, dfl, None), s := (
             jal.ale_regrid_remap(g, e, par.ale, s, m, n, d1)))
         cf = jcf.cmnfld(g, e, s, n)
-        snaps[(step, 'cmnfld')] = (m, n, d1, (s, dfl, None), cf)
-        snaps[(step, 'difest_lateral')] = (m, n, d1, (s, dfl, cf), dfl := (
+        yield (step, 'cmnfld'), (m, n, d1, (s, dfl, None), cf)
+        yield (step, 'difest_lateral'), (m, n, d1, (s, dfl, cf), dfl := (
             jdf.difest_lateral(g, s, cf, par.difest, dfl, m, n)))
-        snaps[(step, 'eddtra')] = (m, n, d1, (s, dfl, cf), dfl := (
+        yield (step, 'eddtra'), (m, n, d1, (s, dfl, cf), dfl := (
             jed.eddtra(g, s, cf, dfl, m, n, d1)))
-        snaps[(step, 'advect')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'advect'), (m, n, d1, (s, dfl, None), s := (
             ref_transport(jm, 'advect', m, n, d1, s, dfl, None)))
-        snaps[(step, 'pbcor1')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'pbcor1'), (m, n, d1, (s, dfl, None), s := (
             jp.pbcor1(g, s, m, n, par.dlt)))
         before = (s, dfl, cf)
         s, dfl = ref_transport(jm, 'diffus', m, n, d1, s, dfl, cf)
-        snaps[(step, 'diffus')] = (m, n, d1, before, (s, dfl))
-        snaps[(step, 'pgforc')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'diffus'), (m, n, d1, before, (s, dfl))
+        yield (step, 'pgforc'), (m, n, d1, (s, dfl, None), s := (
             jg.pgforc(g, e, s, m, n)))
         before = (s, dfl, None)
         s, ju, jv = jmo.momtum(g, s, jm.forcing, par.momtum, dfl.difwgt,
                                m, n, d1, par.dlt)
         uv = (np.asarray(ju), np.asarray(jv))
-        snaps[(step, 'momtum')] = (m, n, d1, before, s)
+        yield (step, 'momtum'), (m, n, d1, before, s)
         vf = jvm.difest_vertical(g, e, s, jm.forcing, jm.swabs, par.vmix, n)
-        snaps[(step, 'difest_vertical')] = (m, n, d1, (s, dfl, None), vf)
+        yield (step, 'difest_vertical'), (m, n, d1, (s, dfl, None), vf)
         dfl = dataclasses.replace(dfl, difvho=vf.Kdiff_t, difvso=vf.Kdiff_s,
                                   difvmo=vf.Kvisc_m, bld=vf.mld * g.ip)
-        snaps[(step, 'ale_vdifft')] = (m, n, d1, (s, dfl, vf), s := (
+        yield (step, 'ale_vdifft'), (m, n, d1, (s, dfl, vf), s := (
             jvd.ale_vdifft(g, e, s, jm.forcing, vf, m, n, d1)))
-        snaps[(step, 'ale_vdiffm')] = (m, n, d1, (s, dfl, vf), s := (
+        yield (step, 'ale_vdiffm'), (m, n, d1, (s, dfl, vf), s := (
             jvd.ale_vdiffm(g, s, vf, m, n, d1)))
-        snaps[(step, 'barotp')] = (m, n, d1, (s, dfl, uv), s := (
+        yield (step, 'barotp'), (m, n, d1, (s, dfl, uv), s := (
             jb.barotp(g, s, ju, jv, m, n, par.lstep, par.dlt, par.barotp)))
-        snaps[(step, 'pbcor2')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'pbcor2'), (m, n, d1, (s, dfl, None), s := (
             jp.pbcor2(g, e, s, m, n, par.dlt)))
-        snaps[(step, 'tmsmt2')] = (m, n, d1, (s, dfl, None), s := (
+        yield (step, 'tmsmt2'), (m, n, d1, (s, dfl, None), s := (
             jt.tmsmt2(g, s, m, n)))
         if g.arctic:
             from blom_tpu.parallel.arctic import sync_state
-            snaps[(step, 'arctic_sync')] = (m, n, d1, (s, dfl, None), s := (
+            yield (step, 'arctic_sync'), (m, n, d1, (s, dfl, None), s := (
                 sync_state(s)))
-    return snaps
 
 
 @pytest.fixture(scope='module')
@@ -505,9 +506,9 @@ def full_snapshots(full_models, tmp_path_factory):
     """blom_tpu's inputs and outputs of every phase of the first two
     full steps, run eagerly phase by phase, once per run."""
     jm, _ = full_models
-    return shared(tmp_path_factory, 'slice_full_snapshots',
-                  lambda: full_step_snapshots(jm, jm.state, jm.dfl,
-                                              jm.clock.delt1))
+    return shared_items(tmp_path_factory, 'slice_full_snapshots',
+                        lambda: full_step_items(jm, jm.state, jm.dfl,
+                                                jm.clock.delt1))
 
 
 def _full_port_phase(tm, name, m, n, d1, s, dfl, extra):

@@ -52,8 +52,8 @@ from blom_tpu_torch.dynamics.difest import DifestParams as TDifest
 from blom_tpu_torch.parallel import arctic as tarc
 from tests.test_torch_slice import (FULL_PHASES, _full_port_phase,
                                     _np_fields, _rel_errors,
-                                    _rel_errors_any, full_step_snapshots)
-from tests.torch_shared import shared, shared_build
+                                    _rel_errors_any, full_step_items)
+from tests.torch_shared import shared_build, shared_items
 
 SIZE = dict(itdm=16, jtdm=12, kdm=6)
 KINDS = ('p', 'u', 'q', 'v')
@@ -242,8 +242,8 @@ def advanced(models):
 @pytest.fixture(scope='module')
 def snapshots(advanced, tmp_path_factory):
     jm, _, d1 = advanced
-    return shared(tmp_path_factory, 'tripolar_snapshots',
-                  lambda: full_step_snapshots(jm, jm.state, jm.dfl, d1))
+    return shared_items(tmp_path_factory, 'tripolar_snapshots',
+                        lambda: full_step_items(jm, jm.state, jm.dfl, d1))
 
 
 @pytest.mark.parametrize('phase', FULL_PHASES + ('arctic_sync',))

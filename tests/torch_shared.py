@@ -14,13 +14,17 @@ loaded form too, so every worker compares against the same values.
 Without xdist the reference is built in the process, as before.
 `shared_build` does the same for a blom_tpu model builder, keyed by its
 arguments, so that every module building the same model shares one
-build.
+build.  `shared_items` does it for a reference made of many items (a
+phase-by-phase run), stored one item at a time as it is built, so that a
+worker waits only for the item its test reads.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
+import time
 
 import jax
 import jax.numpy as jnp
@@ -67,3 +71,67 @@ def shared_build(tmp_path_factory, build, **kw):
     args = '_'.join(f'{k}-{v}' for k, v in sorted(kw.items()))
     return shared(tmp_path_factory, f'{build.__module__}.{build.__name__}_'
                   f'{args}', lambda: build(**kw))
+
+
+def _item_path(root, key):
+    return root / hashlib.sha1(repr(key).encode()).hexdigest()
+
+
+def _build_items(root, items):
+    """Store each (key, value) of items() under root as it comes, then
+    mark root done."""
+    for key, value in items():
+        part = root / 'part'
+        part.write_bytes(pickle.dumps(_store(value)))
+        part.replace(_item_path(root, key))
+    (root / 'done').touch()
+
+
+class _Items:
+    """The items of a `shared_items` reference, each loaded when first
+    read; reading one that is not stored yet waits until it is, and if
+    its builder is gone (its lock free and root not done) builds them."""
+
+    def __init__(self, root, lock, items):
+        self.root, self.lock, self.items = root, lock, items
+        self._got = {}
+
+    def _build_if_orphaned(self):
+        from filelock import Timeout
+        try:
+            self.lock.acquire(timeout=0)
+        except Timeout:
+            return
+        try:
+            if not (self.root / 'done').is_file():
+                _build_items(self.root, self.items)
+        finally:
+            self.lock.release()
+
+    def __getitem__(self, key):
+        if key not in self._got:
+            path = _item_path(self.root, key)
+            while not path.is_file():
+                if (self.root / 'done').is_file() and not path.is_file():
+                    raise KeyError(key)
+                self._build_if_orphaned()
+                time.sleep(.05)
+            self._got[key] = _load(pickle.loads(path.read_bytes()))
+        return self._got[key]
+
+
+def shared_items(tmp_path_factory, name, items):
+    """A mapping of the (key, value) pairs that items() yields, built once
+    per test run across the xdist workers as `shared` builds, but stored
+    item by item: a worker reading a key waits only until that item is
+    built.  `name` must be unique in the suite; keys need a repr that is
+    the same in every worker."""
+    if not os.environ.get('PYTEST_XDIST_WORKER'):
+        return dict(items())
+    from filelock import FileLock
+
+    root = tmp_path_factory.getbasetemp().parent / f'torch_items_{name}'
+    root.mkdir(exist_ok=True)
+    out = _Items(root, FileLock(f'{root}.lock'), items)
+    out._build_if_orphaned()
+    return out
